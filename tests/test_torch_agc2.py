@@ -120,7 +120,7 @@ def test_features_match():
     frames = _speech(5, b, 24000, 5)[:, :, :, 0]
     step = jax.jit(jax.vmap(j_feat.extract_features))
     jstate = _batched(j_feat.init_state(), b)
-    state = tree_to_state(features.init_state(1), _np(jstate))
+    state = tree_to_state(features.init_state(1, "cpu"), _np(jstate))
     module = features.FeatureExtractor()
     for frame in frames:
         jstate, jfeat, jsil = step(jstate, frame)
@@ -163,7 +163,7 @@ def test_vad_wrapper_matches_through_reset():
     b = 3
     jstate = _batched(j_vad.init_state(48000), b)
     jstate = jstate.replace(time_to_reset=jnp.full((b,), 2, jnp.int32))
-    state = tree_to_state(vad_wrapper.init_state(48000, 1), _np(jstate))
+    state = tree_to_state(vad_wrapper.init_state(48000, 1, "cpu"), _np(jstate))
     module = vad_wrapper.VadWrapper(48000)
     step = jax.jit(jax.vmap(lambda s, x: j_vad.analyze(s, x, 48000)))
     for f, frame in enumerate(_speech(6, b, 48000, 2, channels=2)):
@@ -183,7 +183,7 @@ def test_limiter_matches():
     b = 4
     rng = np.random.default_rng(4)
     jstate = _batched(j_lim.init_state(), b)
-    state = tree_to_state(limiter.init_state(1), _np(jstate))
+    state = tree_to_state(limiter.init_state(1, "cpu"), _np(jstate))
     module = limiter.Limiter()
     step = jax.jit(jax.vmap(j_lim.process))
     for f in range(6):
@@ -230,10 +230,11 @@ def test_adaptive_digital_components_match():
           _batched(j_ad.init_saturation_protector(), b),
           _batched(j_ad.init_noise_floor(48000), b),
           _batched(j_ad.init_adaptive_digital(cfg_j), b))
-    ts = (tree_to_state(ad.init_speech_level(cfg, 1), _np(js[0])),
-          tree_to_state(ad.init_saturation_protector(1), _np(js[1])),
-          tree_to_state(ad.init_noise_floor(48000, 1), _np(js[2])),
-          tree_to_state(ad.init_adaptive_digital(cfg, 1), _np(js[3])))
+    ts = (tree_to_state(ad.init_speech_level(cfg, 1, "cpu"), _np(js[0])),
+          tree_to_state(ad.init_saturation_protector(1, "cpu"), _np(js[1])),
+          tree_to_state(ad.init_noise_floor(48000, 1, "cpu"), _np(js[2])),
+          tree_to_state(ad.init_adaptive_digital(cfg, 1, "cpu"),
+                        _np(js[3])))
     rng = np.random.default_rng(8)
     lim_level = np.array([100.0, 3000.0, 30000.0, 40000.0], np.float32)
     frames = _speech(60, b, 48000, 6, channels=2)
@@ -256,7 +257,7 @@ def test_gain_controller2_matches():
     cfg = Agc2Config(enabled=True, adaptive_digital=AdaptiveDigital(enabled=True))
     jstate = _batched(j_gc2.init_state(cfg_j, 48000, use_internal_vad=True,
                                        num_channels=2), b)
-    state = tree_to_state(gc2.init_state(cfg, 48000, 1), _np(jstate))
+    state = tree_to_state(gc2.init_state(cfg, 48000, 1, "cpu"), _np(jstate))
     module = gc2.GainController2(cfg, 48000)
     step = jax.jit(jax.vmap(lambda s, x: j_gc2.process(cfg_j, s, x, 48000)))
     for f, x in enumerate(_speech(30, b, 48000, 12, channels=2)):

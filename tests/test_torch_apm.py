@@ -100,7 +100,7 @@ def test_state_bridge_round_trips_leaf_by_leaf():
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     # The port's own init_state is the same state.
-    own = apm.state_to_numpy(apm.init_state(geo, B))
+    own = apm.state_to_numpy(apm.init_state(geo, B, device="cpu"))
     for k, v in jstate.items():
         np.testing.assert_array_equal(own[k], v, err_msg=k)
 
@@ -172,7 +172,7 @@ def test_slice_matches_jax_end_to_end():
 
 def test_render_only_and_capture_only_steps():
     _, geo = _geometries()
-    state = apm.init_state(geo, 2)
+    state = apm.init_state(geo, 2, device="cpu")
     x = torch.from_numpy(_frames(1, 3)[0][:2])
     state, rout, bands = apm.process_render_stream(geo, state, x)
     assert rout.shape == (2, 480, 2) and bands.shape == (2, 3, 160, 2)
@@ -185,7 +185,6 @@ def test_render_only_and_capture_only_steps():
 
 
 _UNPORTED = {
-    "aec3": dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True)),
     "aecm": dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True,
                                                       mobile_mode=True)),
     "agc1": dict(gain_controller1=cfg_mod.GainController1(enabled=True)),
@@ -214,7 +213,7 @@ def test_unported_rates_raise(rates):
     geo = apm.ApmGeometry.create(config, rates[0], 2,
                                  capture_output_rate=rates[1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apm.init_state(geo, 1)
+        apm.init_state(geo, 1, device="cpu")
 
 
 def test_injections_raise():
@@ -239,7 +238,7 @@ cfg = c.Config().replace(
     gain_controller2=c.GainController2(
         enabled=True, adaptive_digital=c.AdaptiveDigital(enabled=True)))
 geo = apm.ApmGeometry.create(cfg, 48000, 2, num_render_channels=2)
-state = apm.init_state(geo, 1)
+state = apm.init_state(geo, 1, device="cpu")
 x = torch.from_numpy(np.random.default_rng(0).uniform(
     -0.3, 0.3, (1, 480, 2)).astype(np.float32))
 state, out, rout, stats = apm.process_stream_pair(geo, state, x, x)
@@ -256,3 +255,102 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def _aec3_config(**kw):
+    return _slice_config(cfg_mod).replace(
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True), **kw)
+
+
+def _aec3_cfg_with(**delay):
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as a3cfg,
+    )
+
+    c = a3cfg.EchoCanceller3Config()
+    return c.replace(delay=dataclasses.replace(c.delay, **delay))
+
+
+_UNPORTED_AEC3 = {
+    "pair_phase_false": lambda: _aec3_geo_pair_phase_false(),
+    "debug_taps": lambda: apm.ApmGeometry.create(
+        _aec3_config(), 48000, 2, num_render_channels=2, debug_taps=True),
+    "nree": lambda: _aec3_geo_nree(),
+    "bf16_rings": lambda: apm.ApmGeometry.create(
+        _aec3_config(), 48000, 2, num_render_channels=2,
+        aec3_ring_dtype="bfloat16"),
+    "fixed_capture_delay": lambda: apm.ApmGeometry.create(
+        _aec3_config(), 48000, 2, num_render_channels=2,
+        aec3_cfg=_aec3_cfg_with(fixed_capture_delay_samples=32)),
+    "down_sampling_by_8": lambda: apm.ApmGeometry.create(
+        _aec3_config(), 48000, 2, num_render_channels=2,
+        aec3_cfg=_aec3_cfg_with(down_sampling_factor=8)),
+}
+
+
+def _aec3_geo_pair_phase_false():
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as a3cfg,
+        echo_canceller3 as ec3,
+    )
+
+    return ec3.Aec3Geometry.create(a3cfg.EchoCanceller3Config(), 48000, 2,
+                                   2, pair_phase=False)
+
+
+def _aec3_geo_nree():
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as a3cfg,
+        echo_canceller3 as ec3,
+    )
+
+    return ec3.Aec3Geometry.create(a3cfg.EchoCanceller3Config(), 48000, 2,
+                                   2, nree=object())
+
+
+@pytest.mark.parametrize("name", sorted(_UNPORTED_AEC3))
+def test_unported_aec3_options_raise(name):
+    """AEC3 runs; its non-default branches raise, naming their item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        _UNPORTED_AEC3[name]()
+
+
+def test_aec3_geometry_and_state_build():
+    geo = apm.ApmGeometry.create(_aec3_config(), 48000, 2,
+                                 num_render_channels=2,
+                                 aec3_stereo_content=True)
+    assert geo.aec3 is not None and geo.aec3.num_render_channels == 2
+    assert geo.post_filter_enabled and geo.aec3_dynamic_stereo
+    state = apm.init_state(geo, 2, device="cpu")
+    assert state.aec is not None and state.pf is not None
+    assert state.ed is not None and state.frame_counter == 0
+    # The block cadence needs a render frame on every step.
+    x = torch.zeros((2, 480, 2))
+    with pytest.raises(ValueError, match="render frame"):
+        apm.process_stream_pair(geo, state, x)
+
+
+def test_init_state_defaults_to_the_card():
+    """Without a device the state goes to the card; with no card that
+    raises and says to pass device="cpu"."""
+    _, geo = _geometries()
+    if torch.cuda.is_available():
+        state = apm.init_state(geo, 1)
+        assert state.input_rms.sum_square.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            apm.init_state(geo, 1)
+    state = apm.init_state(geo, 1, device="cpu")
+    assert state.input_rms.sum_square.device.type == "cpu"
+
+
+def test_rnn_vad_weights_are_a_byte_identical_copy():
+    from webrtc_audio_processing_tpu_torch.models.agc2.rnn_vad import rnn
+
+    jax_file = os.path.join(REPO, "webrtc_audio_processing_tpu", "models",
+                            "agc2", "rnn_vad", "rnnoise_weights.npz")
+    assert os.path.dirname(str(rnn.WEIGHTS_PATH)).endswith(
+        os.path.join("webrtc_audio_processing_tpu_torch", "models", "agc2",
+                     "rnn_vad"))
+    with open(rnn.WEIGHTS_PATH, "rb") as a, open(jax_file, "rb") as b:
+        assert a.read() == b.read()

@@ -11,9 +11,14 @@ import pytest
 import torch
 
 from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+from webrtc_audio_processing_tpu_torch.models import post_filter
+from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
 from webrtc_audio_processing_tpu_torch.ops import (
     biquad,
     cuda_biquad,
+    cuda_matched_filter,
+    cuda_pre_echo,
+    cuda_span,
     cuda_window,
 )
 
@@ -83,3 +88,119 @@ def test_slice_runs_through_both_kernels(device):
     assert torch.isfinite(out).all() and out.shape == (8, 480, 2)
     assert cuda_biquad.launches - k1 == 3
     assert cuda_window.launches - k5 == 3
+
+
+def _decimator_table():
+    aa, nr = render_buffer.decimator_coeffs()
+    return np.concatenate([aa, nr])
+
+
+@pytest.mark.parametrize("table", ["decimator", "post_filter"])
+def test_k1_new_callers_match_twin_bit_for_bit(device, table):
+    """K1 at the AEC3 decimators' shape (4 sections, one signal per stream,
+    T = 64) and the PostFilter's (4 sections, 2 channels, T = 480)."""
+    coeffs, T, M = {
+        "decimator": (_decimator_table(), 64, 2048),
+        "post_filter": (biquad.pack_coeffs(post_filter.COEFFS_B_48K,
+                                           post_filter.COEFFS_A_48K),
+                        480, 4096),
+    }[table]
+    rng = np.random.default_rng(11)
+    c = torch.from_numpy(coeffs).to(device)
+    x = torch.from_numpy(
+        (rng.standard_normal((T, M)) * 3000).astype(np.float32)).to(device)
+    st = torch.from_numpy(
+        (rng.standard_normal((16, M)) * 100).astype(np.float32)).to(device)
+    st_k, y_k = cuda_biquad.cascade(c, st, x)
+    st_p, y_p = cuda_biquad.cascade_plain(c, st, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
+
+
+@pytest.mark.parametrize("F,W", [(512, 19), (384, 15), (6, 3)])
+def test_k2_matches_twin_bit_for_bit(device, F, W):
+    rng = np.random.default_rng(F)
+    ring = torch.from_numpy(
+        rng.standard_normal((2048, 200, F)).astype(np.float32)).to(device)
+    start = torch.from_numpy(
+        rng.integers(-250, 250, 2048).astype(np.int32)).to(device)
+    got = cuda_span.span_gather(ring, start, W)
+    want = cuda_span.span_gather_plain(ring, start, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _max_rel(a, b):
+    a = a.double()
+    return float((a - b.double()).abs().max() / (a.abs().max() + 1e-30))
+
+
+@pytest.mark.parametrize("B", [3, 2048])
+def test_k3_matches_twin(device, B):
+    """Max-relative 2e-5 on h, alphas and err; updated and segs exact
+    (tests/test_pallas_mf_kernel.py's bar)."""
+    rng = np.random.default_rng(B)
+    f = np.float32
+    low = torch.from_numpy(rng.standard_normal((B, 2448)).astype(f) * 400)
+    lr = torch.from_numpy(rng.integers(0, 2448, B).astype(np.int32))
+    h0 = torch.from_numpy(rng.standard_normal((B, 5, 512)).astype(f) * 0.01)
+    y = torch.from_numpy(rng.standard_normal((B, 16)).astype(f) * 400)
+    y[0, 3] = 32001.0
+    sm = torch.full((B,), 0.7)
+    args = [t.to(device) for t in (low, lr, h0, y, sm)]
+    kw = dict(shift=384, ds_size=2448, threshold=512 * 150.0 ** 2)
+    got = cuda_matched_filter.nlms(*args, **kw)
+    want = cuda_matched_filter.nlms_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("h", "alphas", "err"), got[:3], want[:3]):
+        assert _max_rel(w, g) <= 2e-5, name
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+
+
+@pytest.mark.parametrize("B", [3, 2048])
+def test_k4_matches_twin(device, B):
+    """Within 2e-4 after dividing by max(|out|, 1)
+    (tests/test_pallas_pre_echo.py's bar)."""
+    rng = np.random.default_rng(B + 1)
+    f = np.float32
+    seg = torch.from_numpy(rng.standard_normal((B, 527)).astype(f))
+    h0 = torch.from_numpy((rng.standard_normal((B, 512)) * 0.1).astype(f))
+    al = torch.from_numpy((rng.standard_normal((B, 16)) * 0.01).astype(f))
+    y = torch.from_numpy(rng.standard_normal((B, 16)).astype(f))
+    args = [t.to(device) for t in (seg, h0, al, y)]
+    got = cuda_pre_echo.pre_echo_inst(*args, 4)
+    want = cuda_pre_echo.pre_echo_plain(*args, 4)
+    torch.cuda.synchronize()
+    scale = torch.clamp(want.abs(), min=1.0)
+    assert float(((got - want) / scale).abs().max()) <= 2e-4
+
+
+def test_aec3_path_runs_through_every_kernel(device):
+    """The 48 kHz stereo AEC3 path launches K1 14 times, K2 8, K3 and K4
+    5 each and K5 twice per frame pair."""
+    config = cfg_mod.Config().replace(
+        pipeline=cfg_mod.Pipeline(multi_channel_capture=True,
+                                  multi_channel_render=True,
+                                  maximum_internal_processing_rate=48000),
+        high_pass_filter=cfg_mod.HighPassFilter(enabled=True),
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True),
+        noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
+        gain_controller2=cfg_mod.GainController2(
+            enabled=True,
+            adaptive_digital=cfg_mod.AdaptiveDigital(enabled=True)),
+    )
+    geo = apm.ApmGeometry.create(config, 48000, 2, num_render_channels=2,
+                                 aec3_stereo_content=True)
+    state = apm.init_state(geo, 8)
+    rng = np.random.default_rng(0)
+    mods = (cuda_biquad, cuda_span, cuda_matched_filter, cuda_pre_echo,
+            cuda_window)
+    before = [m.launches for m in mods]
+    for _ in range(4):
+        x = torch.from_numpy(rng.uniform(-0.3, 0.3, (8, 480, 2)).astype(
+            np.float32)).to(device)
+        state, out, rout, stats = apm.process_stream_pair(geo, state, x, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and out.shape == (8, 480, 2)
+    assert [m.launches - b for m, b in zip(mods, before)] == [28, 16, 10, 10,
+                                                             4]

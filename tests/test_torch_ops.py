@@ -238,7 +238,7 @@ def test_three_band_analysis_synthesis_match():
     rng = np.random.default_rng(11)
     jstate = jax.tree_util.tree_map(
         lambda a: jnp.broadcast_to(a, (B,) + a.shape), j_tb.init_state((C,)))
-    state = three_band.init_state(B, C)
+    state = three_band.init_state(B, C, "cpu")
     bank = three_band.ThreeBandFilterBank()
     ana = _vmap_jit(j_tb.analysis)
     syn = _vmap_jit(j_tb.synthesis)
@@ -282,7 +282,7 @@ def test_audio_buffer_round_trip_matches(downmix):
     jstep = _vmap_jit(jstep)
     jst = jax.tree_util.tree_map(lambda a: jnp.broadcast_to(a, (B,) + a.shape),
                                  j_ab.init_state(jcfg))
-    st = audio_buffer.init_state(cfg, B)
+    st = audio_buffer.init_state(cfg, B, "cpu")
     rng = np.random.default_rng(3)
     for _ in range(3):
         x = rng.uniform(-0.5, 0.5, (B, 480, C)).astype(np.float32)
@@ -302,7 +302,7 @@ def test_rms_level_matches():
     rng = np.random.default_rng(4)
     jst = jax.tree_util.tree_map(lambda a: jnp.broadcast_to(a, (B,) + a.shape),
                                  j_rms.init_state())
-    st = rms_level.init_state(B)
+    st = rms_level.init_state(B, "cpu")
     step = _vmap_jit(j_rms.analyze)
     for _ in range(3):
         x = (rng.standard_normal((B, 480, C)) * 9000).astype(np.float32)
@@ -332,7 +332,7 @@ def test_resampler_48k_to_24k_matches():
     rng = np.random.default_rng(5)
     module = resampler.PushSincResampler(480, 240)
     jst = jnp.zeros((B, 2 * 480 + 32), jnp.float32)
-    st = resampler.init_state(480, B)
+    st = resampler.init_state(480, B, "cpu")
     step = _vmap_jit(lambda s, x: j_rs.resample_frame(s, x, 480, 240))
     for _ in range(4):
         x = (rng.standard_normal((B, 480)) * 1000).astype(np.float32)

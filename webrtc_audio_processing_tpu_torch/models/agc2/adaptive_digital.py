@@ -93,7 +93,7 @@ def _min_noise_energy(sample_rate_hz: int) -> float:
 
 
 def init_noise_floor(sample_rate_hz: int, batch: int,
-                     device=None) -> NoiseFloorState:
+                     device) -> NoiseFloorState:
     e = _min_noise_energy(sample_rate_hz)
     return NoiseFloorState(
         first_period=_scalar(batch, True, torch.bool, device),
@@ -172,7 +172,7 @@ def initial_speech_level_dbfs(config: AdaptiveDigital) -> float:
 
 
 def init_speech_level(config: AdaptiveDigital, batch: int,
-                      device=None) -> SpeechLevelState:
+                      device) -> SpeechLevelState:
     lvl = initial_speech_level_dbfs(config)
     t = float(LEVEL_ESTIMATOR_TIME_TO_CONFIDENCE_MS)
     f = torch.float32
@@ -282,7 +282,7 @@ def _init_sub(headroom_db, batch, device) -> SatProtectorSubState:
 
 
 def init_saturation_protector(batch: int,
-                              device=None) -> SaturationProtectorState:
+                              device) -> SaturationProtectorState:
     h = SATURATION_PROTECTOR_INITIAL_HEADROOM_DB
     return SaturationProtectorState(
         num_adjacent_speech_frames=_scalar(batch, 0, torch.int32, device),
@@ -379,7 +379,7 @@ class AdaptiveDigitalState:
 
 
 def init_adaptive_digital(config: AdaptiveDigital, batch: int,
-                          device=None) -> AdaptiveDigitalState:
+                          device) -> AdaptiveDigitalState:
     return AdaptiveDigitalState(
         last_gain_db=_scalar(batch, config.initial_gain_db, torch.float32,
                              device),

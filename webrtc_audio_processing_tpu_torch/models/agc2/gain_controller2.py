@@ -49,7 +49,7 @@ def _fixed_gain_factor(config: Agc2Config) -> float:
 
 
 def init_state(config: Agc2Config, sample_rate_hz: int, batch: int,
-               device=None) -> Agc2State:
+               device) -> Agc2State:
     """The internal-VAD state of gain_controller2.init_state."""
     _check_supported(config)
     adaptive_on = config.adaptive_digital.enabled

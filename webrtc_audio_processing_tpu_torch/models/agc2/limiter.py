@@ -74,7 +74,7 @@ class LimiterState:
     last_scaling_factor: torch.Tensor  # (B,)
 
 
-def init_state(batch: int, device=None) -> LimiterState:
+def init_state(batch: int, device) -> LimiterState:
     return LimiterState(
         filter_state_level=torch.zeros(batch, dtype=torch.float32,
                                        device=device),

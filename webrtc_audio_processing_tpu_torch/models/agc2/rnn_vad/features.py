@@ -88,7 +88,7 @@ class FeatureState:
     last_pitch_strength: torch.Tensor  # (B,)
 
 
-def init_state(batch: int, device=None) -> FeatureState:
+def init_state(batch: int, device) -> FeatureState:
     f32 = dict(dtype=torch.float32, device=device)
     return FeatureState(
         pitch_buffer=torch.zeros((batch, BUF_SIZE), **f32),

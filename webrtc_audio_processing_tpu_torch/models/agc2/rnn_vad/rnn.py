@@ -3,8 +3,8 @@
 Port of ``webrtc_audio_processing_tpu/models/agc2/rnn_vad/rnn.py``
 (reference: agc2/rnn_vad/rnn.cc, rnn_fc.cc, rnn_gru.cc, with the quantized
 int8 rnnoise weights scaled by 1/256 and the table-based activations of
-rnn_activations.h). The weights are read from the JAX package's
-``rnnoise_weights.npz`` by path, without importing that package, and become
+rnn_activations.h). The weights are read from ``rnnoise_weights.npz``
+beside this module (a byte-identical copy of the JAX twin's file) and become
 registered buffers.
 """
 
@@ -21,12 +21,8 @@ WEIGHTS_SCALE = 1.0 / 256.0  # rnn_vad_weights.h:10
 INPUT_SIZE = 42
 HIDDEN_SIZE = 24
 
-# The in-repo weight file, beside the JAX twin of this module.
-WEIGHTS_PATH = (
-    Path(__file__).resolve().parents[4]
-    / "webrtc_audio_processing_tpu" / "models" / "agc2" / "rnn_vad"
-    / "rnnoise_weights.npz"
-)
+# The package's own copy of the weight file.
+WEIGHTS_PATH = Path(__file__).resolve().parent / "rnnoise_weights.npz"
 
 
 def read_weight_arrays(path: Path | str = WEIGHTS_PATH) -> dict:
@@ -88,7 +84,7 @@ class RnnState:
     gru: torch.Tensor  # (B, 24)
 
 
-def init_state(batch: int, device=None) -> RnnState:
+def init_state(batch: int, device) -> RnnState:
     return RnnState(gru=torch.zeros((batch, HIDDEN_SIZE), dtype=torch.float32,
                                     device=device))
 

@@ -28,7 +28,7 @@ class VadState:
     rnn: rnn.RnnState
 
 
-def init_state(sample_rate_hz: int, batch: int, device=None) -> VadState:
+def init_state(sample_rate_hz: int, batch: int, device) -> VadState:
     frame = sample_rate_hz // 100
     return VadState(
         time_to_reset=torch.full((batch,), VAD_RESET_PERIOD_FRAMES,

@@ -74,7 +74,7 @@ class AudioBufferState:
     split: splitting.SplittingState
 
 
-def init_state(cfg: BufferConfig, batch: int, device=None) -> AudioBufferState:
+def init_state(cfg: BufferConfig, batch: int, device) -> AudioBufferState:
     _check_supported(cfg)
     return AudioBufferState(
         input_resampler=None,

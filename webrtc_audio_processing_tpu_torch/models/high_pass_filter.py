@@ -24,7 +24,7 @@ class HighPassFilterState:
 
 
 def init_state(batch: int, num_channels: int,
-               device=None) -> HighPassFilterState:
+               device) -> HighPassFilterState:
     return HighPassFilterState(
         filt=biquad.init_state(NUM_SECTIONS, batch, num_channels, device)
     )

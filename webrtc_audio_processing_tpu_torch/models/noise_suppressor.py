@@ -21,6 +21,7 @@ from torch import nn
 
 from webrtc_audio_processing_tpu_torch.config import NoiseSuppressionLevel
 from webrtc_audio_processing_tpu_torch.ops import mxu_fft
+from webrtc_audio_processing_tpu_torch.ops.batch import const
 from webrtc_audio_processing_tpu_torch.ops.fast_math import (
     exp_approx,
     fast_log2,
@@ -119,7 +120,7 @@ class NsState:
 
 
 def init_state(batch: int, num_channels: int, num_bands: int,
-               device=None) -> NsState:
+               device) -> NsState:
     b, c = batch, num_channels
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -388,10 +389,8 @@ class NoiseSuppressor(nn.Module):
 
         hist = state.histograms
         feats = torch.stack([state.lrt, flatness, spectral_diff], dim=-1)
-        bin_sizes = torch.tensor(
-            [BIN_SIZE_LRT, BIN_SIZE_SPEC_FLAT, BIN_SIZE_SPEC_DIFF],
-            dtype=dt, device=feats.device,
-        )
+        bin_sizes = const((BIN_SIZE_LRT, BIN_SIZE_SPEC_FLAT,
+                           BIN_SIZE_SPEC_DIFF), dt, feats.device)
         bin_idx = (feats * (1.0 / bin_sizes)).to(torch.int32)
         valid = (feats >= 0.0) & (feats < HISTOGRAM_SIZE * bin_sizes)
         hist_bins = torch.arange(HISTOGRAM_SIZE, device=feats.device)

@@ -24,7 +24,7 @@ class RmsLevelState:
     max_sum_square: torch.Tensor  # (B,) float32
 
 
-def init_state(batch: int, device=None) -> RmsLevelState:
+def init_state(batch: int, device) -> RmsLevelState:
     return RmsLevelState(
         sum_square=torch.zeros(batch, dtype=torch.float32, device=device),
         sample_count=torch.zeros(batch, dtype=torch.int32, device=device),

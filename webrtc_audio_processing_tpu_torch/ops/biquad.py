@@ -22,16 +22,20 @@ from webrtc_audio_processing_tpu_torch.ops import cuda_biquad
 
 @dataclass
 class BiquadCascadeState:
-    """x, y: (B, num_sections, 2, C) — previous two inputs / outputs."""
+    """x, y: (B, num_sections, 2, C) — previous two inputs / outputs; a
+    single-signal cascade drops the channel axis: (B, num_sections, 2)."""
 
     x: torch.Tensor
     y: torch.Tensor
 
 
-def init_state(num_sections: int, batch: int, num_channels: int,
-               device=None) -> BiquadCascadeState:
-    z = torch.zeros((batch, num_sections, 2, num_channels),
-                    dtype=torch.float32, device=device)
+def init_state(num_sections: int, batch: int, num_channels: int | None,
+               device) -> BiquadCascadeState:
+    """``num_channels=None`` makes the state of one signal per stream."""
+    shape = (batch, num_sections, 2)
+    if num_channels is not None:
+        shape += (num_channels,)
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
     return BiquadCascadeState(x=z, y=z.clone())
 
 
@@ -44,10 +48,15 @@ def pack_coeffs(coeffs_b, coeffs_a) -> np.ndarray:
 
 
 def process(coeffs: torch.Tensor, state: BiquadCascadeState, x: torch.Tensor):
-    """Run the cascade over ``x`` (B, T, C) with ``coeffs`` (K, 5).
+    """Run the cascade over ``x`` (B, T, C) with ``coeffs`` (K, 5); a
+    single signal per stream is ``x`` (B, T) with a channel-less state.
 
-    Returns (new_state, y) with y (B, T, C).
+    Returns (new_state, y) shaped like ``x``.
     """
+    if x.dim() == 2:
+        st = BiquadCascadeState(x=state.x[..., None], y=state.y[..., None])
+        st, y = process(coeffs, st, x[..., None])
+        return BiquadCascadeState(x=st.x[..., 0], y=st.y[..., 0]), y[..., 0]
     B, T, C = x.shape
     K = coeffs.shape[0]
     x_t = x.permute(1, 0, 2).reshape(T, B * C)

@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels and loads them with ctypes.
 
 The sources in ``csrc/`` have a plain C interface, so ``nvcc`` compiles them
-in seconds into one shared library, without PyTorch's headers. The build
+in seconds into one shared library, without PyTorch's headers: one ``nvcc``
+per source, all started together, then one link. The build
 runs at first use, into ``_build/`` beside this package (listed in
 ``.gitignore``), under a name keyed by a hash of the sources and flags: a
 changed source builds anew, an unchanged one loads the library it finds.
@@ -22,10 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("biquad.cu", "window.cu")
+SOURCES = ("biquad.cu", "window.cu", "span.cu", "matched_filter.cu",
+           "pre_echo.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,6 +37,14 @@ _SIGNATURES = {
     "biquad_cascade_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # buf, start, out, B, L, W, stream
     "take_windows_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # ring, start, out, B, LP, F, W, stream
+    "span_gather_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # lowrate, lr_read, h0, y, smoothing, h, alphas, err, updated, segs,
+    # B, N, shift, ds_size, threshold, sub, taps, stream
+    "matched_filter_nlms_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, ctypes.c_float, _I, _I, _P),
+    # seg, h0, alphas, y, out, B, sub, taps, acc_rate, stream
+    "pre_echo_inst_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -74,6 +84,36 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+    return "".join(logs)
+
+
+def _build(so_path: Path):
+    """Compile every source to an object at once, then link the library
+    under a temporary name and move it into place. Returns (seconds,
+    log)."""
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (n + ".o")) for n in SOURCES]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / n), "-o", o]
+                    for n, o in zip(SOURCES, objs)])
+        out = str(Path(tmp) / so_path.name)
+        log += _run([[nvcc, "-shared", "-Wno-deprecated-gpu-targets", "-o", out,
+                     *objs]])
+        os.replace(out, so_path)
+    return time.perf_counter() - t0, log
+
+
 def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
     global _LIBRARY
@@ -83,20 +123,7 @@ def library() -> KernelLibrary:
     so_path = BUILD_DIR / f"libwap_kernels_{_digest()}.so"
     seconds, log = 0.0, ""
     if not so_path.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / n) for n in SOURCES)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, so_path)
+        seconds, log = _build(so_path)
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

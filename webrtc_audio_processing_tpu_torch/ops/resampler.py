@@ -83,7 +83,7 @@ def make_plan(source_frames: int, dest_frames: int):
     return src_idx.astype(np.int32), kernels.astype(np.float32)
 
 
-def init_state(source_frames: int, batch: int, device=None) -> torch.Tensor:
+def init_state(source_frames: int, batch: int, device) -> torch.Tensor:
     """Rolling buffer (B, 2S + 32), zero-initialized (priming pass)."""
     return torch.zeros((batch, 2 * source_frames + KERNEL_SIZE),
                        dtype=torch.float32, device=device)

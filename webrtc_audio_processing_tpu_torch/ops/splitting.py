@@ -41,7 +41,7 @@ class SplittingState:
 
 
 def init_state(num_bands: int, batch: int, num_channels: int,
-               device=None) -> SplittingState:
+               device) -> SplittingState:
     _check_supported(num_bands)
     if num_bands == 3:
         return SplittingState(

@@ -119,7 +119,7 @@ class ThreeBandState:
     synthesis: torch.Tensor
 
 
-def init_state(batch: int, num_channels: int, device=None) -> ThreeBandState:
+def init_state(batch: int, num_channels: int, device) -> ThreeBandState:
     f32 = dict(dtype=torch.float32, device=device)
     return ThreeBandState(
         analysis=torch.zeros((batch, NUM_BANDS, MEMORY_SIZE, num_channels),
