@@ -11,24 +11,35 @@ exits non-zero without a result line:
    with ctypes.
 3. kernels: K1 (biquad cascade, at the HPF's, the AEC3 decimators' and the
    PostFilter's shapes), K2 (ring span read), K3 (matched-filter NLMS
-   bank), K4 (pre-echo errors) and K5 (window read) against their plain
-   PyTorch twins on the card at the main path's shapes, with CUDA-event
-   times of kernel, twin and, for K2 and K5, the one PyTorch call that
-   computes the same function (``torch.gather`` on a prebuilt index).
-4. AEC3 main path: B = 2048 streams of 48 kHz stereo through
-   ``apm.process_stream_pair`` with HPF, multichannel AEC3, NS and AGC2
-   (the bench's configuration, bench.py:53-78), 300 frames (3 s) of an
-   echo scene; the last 100 frames timed. Every kernel must launch the
-   number of times the code implies, and the echo must be cancelled (ERLE
-   over the last third above 6 dB, tests/test_apm_48k_stereo.py's bar).
-5. AEC3 cross-check: streams 0 and 2047 of frames 100-199 rerun on the
-   CPU by the same port (plain twins) from the card's state before each
-   frame: relative RMS <= 1e-3 and the same delay on every frame. The
-   free-running rerun from frame 100 is printed beside it: AEC3 turns
-   float noise into decisions (the refined filter's leakage choice when
-   the refined and coarse error energies tie to a few ulps), so two
-   devices drift apart within tens of frames with the same ERLE
-   (tools/torch_card_vs_cpu.py finds the first diverging leaf).
+   bank), K4 (pre-echo errors), K5 (window read) and K6 (the subtractor
+   pair kernel, at 48 kHz stereo for 2 and 3 blocks with and without
+   events, and at 16 kHz mono; both geometries also with render spectra
+   below the gains' noise gate) against their plain PyTorch twins on the
+   card at the main paths' shapes, with CUDA-event times of kernel, twin
+   and, for K2 and K5, the one PyTorch call that computes the same
+   function (``torch.gather`` on a prebuilt index).
+4. Three AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
+   and AGC2 (the bench's configurations, bench.py:30-78), each 300 frames
+   (3 s) of an echo scene with the last 100 frames timed:
+   - ``aec3_path``: B = 2048 streams of 48 kHz stereo, the plain
+     subtractor (the default);
+   - ``pair_kernel_48k``: the same with the subtractor on K6;
+   - ``pair_kernel_16k_mono``: B = 4096 streams of 16 kHz mono on K6.
+   Every kernel must launch the number of times the code implies (K6 once
+   per frame on the pair-kernel paths, never on the plain one), and the
+   echo must be cancelled (ERLE over the last third above 6 dB,
+   tests/test_apm_48k_stereo.py's bar). Two profiled frames count the
+   device kernels per frame.
+5. After each path, its cross-check: two streams rerun on the CPU by the
+   same port (plain twins) from the card's state before each checked frame
+   (every third or fourth frame from 76 to 195, the untimed run after the
+   delay has locked): relative RMS <= 1e-3 and the same delay on every
+   checked frame. A free-running rerun over the first 20 of those frames
+   is printed beside it: AEC3 turns float noise into
+   decisions (the refined filter's leakage choice when the refined and
+   coarse error energies tie to a few ulps), so two devices drift apart
+   within tens of frames with the same ERLE (tools/torch_card_vs_cpu.py
+   finds the first diverging leaf).
 6. slice-1 path (echo canceller off): 30 timed frames, one K1 and one K5
    launch per frame, and its cross-check on 4 streams.
 
@@ -39,6 +50,7 @@ script imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -56,9 +68,62 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
-AEC3_CHECK = (0, 2047)
-CROSS_FROM = 100
-CROSS_FRAMES = 100
+PROFILED_FRAMES = 2
+FREE_FRAMES = 20
+
+# K6 against its twin: 2e-3 of each float leaf's scale
+# (tests/test_subtractor_pallas.py:119-124), integer leaves exact.
+K6_RTOL = 2e-3
+# Ties. Below the gains' noise gate no filter adapts: after a coarse reset
+# the refined and coarse filters differ by a transform round trip, and
+# e2_refined and e2_coarse can lie within a few ulps, so rounding (which
+# kernel and twin do in another order) decides `e2_refined < e2_coarse`.
+# A stream on which the two decide it differently, with both gaps within
+# K6_TIE_ULPS float32 ulps of the larger energy, took the other branch of a
+# tie: its integer leaves may differ (the poor-coarse counter), and where
+# the tie decided a coarse reset (its hangover differs) its float leaves
+# too. Such reset splits may be at most K6_MAX_RESET_SPLITS of the streams;
+# every other stream is held to K6_RTOL and exact integers.
+K6_TIE_ULPS = 4
+K6_MAX_RESET_SPLITS = 0.01
+# name: (streams, capture channels, render channels, blocks, events,
+# render spectra below the noise gate)
+K6_CASES = {
+    "48k_stereo_nb3": (B, 2, 2, 3, False, False),
+    "48k_stereo_nb3_events": (B, 2, 2, 3, True, False),
+    "48k_stereo_nb2": (B, 2, 2, 2, False, False),
+    "48k_stereo_nb2_events": (B, 2, 2, 2, True, False),
+    "48k_stereo_nb3_below_gate": (B, 2, 2, 3, False, True),
+    "16k_mono_nb3": (4096, 1, 1, 3, False, False),
+    "16k_mono_nb3_below_gate": (4096, 1, 1, 3, False, True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Aec3Path:
+    """One AEC3 path of phase 4: the bench mode (``BENCH_MODES``), the
+    streams, the subtractor, the two streams checked on the CPU and the
+    frames of the cross-check."""
+
+    name: str
+    mode: str
+    batch: int
+    pair_kernel: bool
+    check: tuple
+    cross: range
+
+
+# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 40 and
+# 30 frames keep the script near half its 1200 s limit on a slow host. They
+# are spread over frames 76-195, before the profiled and timed frames.
+AEC3_PATHS = (
+    Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
+             range(76, 196, 3)),
+    Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
+             range(76, 196, 4)),
+    Aec3Path("pair_kernel_16k_mono", "16k_mono", 4096, True, (0, 4095),
+             range(76, 196, 4)),
+)
 
 SLICE_WARMUP = 10
 SLICE_TIMED = 30
@@ -315,50 +380,287 @@ def kernels_phase(dev):
         library_ms=_event_ms(lambda: torch.gather(buf, 1, idx), 200),
         library_note="torch.gather with a prebuilt index",
         bound_ms=bound, bound_by=by, shape=f"B={B} L=864 W=480"))
+
+    # K6 at the pair-kernel paths' shapes; the row is 48 kHz stereo with
+    # three blocks, the frame pair's odd frame.
+    k6 = {name: k6_case(dev, *case, seed=SEED + i)
+          for i, (name, case) in enumerate(K6_CASES.items())}
+    rows.append(dict(
+        name="subtractor_pair", route="cuda",
+        source="webrtc_audio_processing_tpu_torch/csrc/subtractor.cu",
+        replaces="webrtc_audio_processing_tpu/ops/pallas_subtractor.py:154",
+        library_ms=None,
+        library_note="none: no PyTorch call runs the subtractor loop",
+        other_shapes={k: v for k, v in k6.items() if k != "48k_stereo_nb3"},
+        **k6["48k_stereo_nb3"]))
     for r in rows:
         phase("kernel", **r)
     return rows
 
 
+# ---------------------------------------------------------------- K6 inputs
+
+
+def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False):
+    """Random inputs of K6 made with numpy from ``seed``: per stream the
+    subtractor state of tests/test_subtractor_pallas.py:25-51 (random
+    filters, H_error, responses; call counters 40, poor-excitation counters
+    1200) with render spectra above the gains' noise gate (so the filters
+    adapt) or, with ``below_gate``, below it (far-end silence: no filter
+    adapts), and with counters that drive the misadjustment rescale (stream 1),
+    a coarse reset once the refined error is the smaller (every stream), the
+    leakage hangover (stream 2) and a size change in progress (stream 3);
+    the packed sf chain, rows [re | im | |X|^2 | 0] at the render buffer's
+    width; bins 0 and 64 real in every spectrum, as a real signal's are
+    (cuFFT's inverse does not ignore their imaginary parts as the CPU's
+    does); window offsets that differ by stream; capture blocks. With
+    ``events``: the initial-state transition on block 0, a delay change on
+    block 1 of the even streams, poor excitation on block 1 of the odd ones,
+    a narrow-band mask on block 1 and a saturated capture on the last
+    stream. The multichannel config (P = 13, Pc = 11) with two render
+    channels, the default (P = Pc = 13) with one, as the APM selects them.
+    Returns a dict of the arguments of ``cuda_subtractor.pair``."""
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as aec3_config,
+        render_buffer,
+        subtractor,
+    )
+    from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor
+
+    config = (aec3_config.create_default_multichannel_config() if R > 1
+              else aec3_config.EchoCanceller3Config())
+    geo = render_buffer.BufferGeometry.create(config, 16000, R)
+    rng = np.random.default_rng(seed)
+    st = subtractor.init_state(config, R, C, batch, "cpu")
+    P, Pc = st.refined.H.shape[2], st.coarse.H.shape[2]
+    f32 = np.float32
+
+    def filt(p):
+        shape = (batch, C, p, R, 65)
+        H = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+        H[..., [0, 64]] = H[..., [0, 64]].real  # the spectra of real signals
+        return torch.from_numpy((H * 0.1).astype(np.complex64))
+
+    def per_stream(values, dtype=torch.int32):
+        return torch.tensor([values[b % len(values)] for b in range(batch)],
+                            dtype=dtype)
+
+    st.refined.H, st.coarse.H = filt(P), filt(Pc)
+    st.refined.size_change_counter = per_stream([0, 0, 0, 5])
+    st.refined.target_size = per_stream([P - 1, P - 1, P - 1, P])
+    for gain in (st.refined_gain, st.coarse_gain):
+        gain.call_counter[:] = 40
+        gain.poor_excitation_counter[:] = 1200
+    st.refined_gain.H_error = torch.from_numpy(
+        rng.uniform(10.0, 1000.0, (batch, C, 65)).astype(f32))
+    st.refined_frequency_responses = torch.from_numpy(
+        rng.uniform(0, 1, (batch, C, P, 65)).astype(f32))
+    st.refined_impulse_responses = torch.from_numpy(
+        (rng.standard_normal((batch, C, P * 64)) * 0.01).astype(f32))
+    st.mis_inv = per_stream([0.0, 20.0, 0.0, 0.0], torch.float32)[:, None] \
+        .repeat(1, C)
+    st.mis_blocks_acum = (torch.arange(batch, dtype=torch.int32) % 4)[
+        :, None].repeat(1, C)
+    st.poor_coarse_filter_counters[:] = 4
+    st.coarse_filter_reset_hangover = per_stream([0, 0, 3, 0])[:, None] \
+        .repeat(1, C)
+
+    L = R * 65
+    W2 = 2 * (P + nb - 1)
+    level = 100.0 if below_gate else 3000.0
+    re = (rng.standard_normal((batch, W2, L)) * level).astype(f32)
+    im = (rng.standard_normal((batch, W2, R, 65)) * level).astype(f32)
+    im[..., [0, 64]] = 0.0
+    im = im.reshape(batch, W2, L)
+    chain = np.zeros((batch, W2, geo.sf_row_fp), f32)
+    chain[..., :L], chain[..., L:2 * L] = re, im
+    chain[..., 2 * L:3 * L] = re * re + im * im
+    offsets = ((nb - 1 - np.arange(nb))[None, :]
+               + (np.arange(batch) % 3)[:, None]).astype(np.int32)
+    ys = (rng.standard_normal((batch, nb, C, 64)) * 1000).astype(f32)
+    masks = np.zeros((batch, nb, 65), bool)
+    ev = np.zeros((batch, nb, 3), bool)
+    sat = np.zeros(batch, bool)
+    if events:
+        ev[:, 0, 2] = True
+        ev[0::2, 1, 1] = True
+        ev[1::2, 1, 0] = True
+        masks[:, 1, 10:15] = True
+        sat[-1] = True
+    packed = cuda_subtractor.pack(st)
+    return dict(
+        config=config, geo=geo,
+        st=cuda_subtractor.PairState(*(t.to(device) for t in packed)),
+        sf_chain=torch.from_numpy(chain).to(device),
+        offsets=torch.from_numpy(offsets).to(device),
+        ys=torch.from_numpy(ys).to(device),
+        narrow_masks=torch.from_numpy(masks).to(device),
+        events=torch.from_numpy(ev).to(device),
+        saturated_capture=torch.from_numpy(sat).to(device))
+
+
+def k6_leaves(result):
+    """(name, tensor) of K6's new state and outputs; the scalar slots and
+    the per-block scalars column by column, complex planes as float
+    pairs."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor
+
+    st, out = result
+    for name in ("H", "H_coarse"):
+        yield name, torch.view_as_real(getattr(st, name))
+    yield from (("H_error", st.H_error), ("freq", st.freq), ("imp", st.imp))
+    for j in range(st.fs.shape[1]):
+        yield f"fs[{j}]", st.fs[:, j]
+    for j in range(st.iv.shape[1]):
+        yield f"iv[{j}]", st.iv[:, j]
+    yield from (("e_refined", out.e_refined), ("e_coarse", out.e_coarse))
+    for j, key in enumerate(cuda_subtractor.SCALAR_KEYS):
+        yield key, out.scalars[..., j]
+    yield from (("out.freq", out.freq), ("out.imp", out.imp),
+                ("out.size", out.size))
+
+
+def k6_gaps(out):
+    """(e2_refined < e2_coarse, |e2_refined - e2_coarse| in float32 ulps of
+    the larger), each (B, nb, C)."""
+    e2r = out.scalars[..., 1].double()
+    e2c = out.scalars[..., 2].double()
+    ulp = torch.finfo(torch.float32).eps * torch.maximum(e2r.abs(), e2c.abs())
+    return e2r < e2c, (e2r - e2c).abs() / torch.clamp(ulp, min=1e-30)
+
+
+def k6_compare(got, want):
+    """Leaf by leaf, with the tie rule at K6_TIE_ULPS: (the largest error
+    relative to the leaf's scale over the float leaves, the largest
+    absolute error, the leaves that fail, the tie splits: streams that took
+    the other branch of a tie, of them the reset splits, and the largest
+    gap in ulps of a split decision)."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor as cs
+
+    (dg, gap_g), (dw, gap_w) = k6_gaps(got[1]), k6_gaps(want[1])
+    split = ((dg != dw) & (gap_g <= K6_TIE_ULPS) & (gap_w <= K6_TIE_ULPS))
+    tie = split.flatten(1).any(dim=1)
+    C = got[0].H.shape[1]
+    hang = slice(cs.NI_SHARED + 3 * C, cs.NI_SHARED + 4 * C)
+    reset = (got[0].iv[:, hang] != want[0].iv[:, hang]).any(dim=1) & tie
+    keep = ~reset
+    rel, err, bad = 0.0, 0.0, []
+    for (name, g), (_, w) in zip(k6_leaves(got), k6_leaves(want)):
+        if not w.dtype.is_floating_point:
+            differ = (g != w).reshape(g.shape[0], -1).any(dim=1)
+            if bool((differ & ~tie).any()):
+                bad.append(name)
+            continue
+        g, w = g[keep].double(), w[keep].double()
+        d = float((g - w).abs().max()) if g.numel() else 0.0
+        err = max(err, d)
+        rel = max(rel, d / max(float(w.abs().max()), 1e-3))
+    n_reset = int(reset.sum())
+    if n_reset > K6_MAX_RESET_SPLITS * reset.numel():
+        bad.append(f"{n_reset} reset splits")
+    splits = dict(
+        tie_streams=int(tie.sum()), reset_splits=n_reset,
+        max_split_gap_ulps=float(torch.maximum(gap_g, gap_w)[split].max())
+        if bool(split.any()) else None)
+    return rel, err, bad, splits
+
+
+def k6_bound(inp):
+    """K6's least time: each state plane read and written once, the chain
+    rows the windows cover (re, im and spectrum), the per-block inputs and
+    outputs; the operations at this state's filter sizes."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor as cs
+
+    st = inp["st"]
+    Bn, C, P, R, _ = st.H.shape
+    nb = inp["ys"].shape[1]
+    L = R * 65
+    offs = inp["offsets"].cpu().numpy()
+    covered = np.zeros((Bn, inp["sf_chain"].shape[1]), bool)
+    for k in range(nb):
+        covered[np.arange(Bn)[:, None], offs[:, k:k + 1] + np.arange(P)] = True
+    n_bytes = 2 * sum(t.numel() * t.element_size() for t in st)
+    n_bytes += int(covered.sum()) * 3 * L * 4
+    n_bytes += sum(inp[k].numel() * inp[k].element_size() for k in (
+        "offsets", "ys", "narrow_masks", "events", "saturated_capture"))
+    n_bytes += Bn * nb * C * (2 * 64 + 7 + P * 65 + P * 64) * 4 + Bn * nb * 4
+    iv = st.iv.cpu()
+    sizes = (iv[:, cs.I_R_CUR] + iv[:, cs.I_C_CUR]).double()
+    # Per (stream, channel, block): apply and adapt of both filters (8
+    # operations per complex multiply-add), the spectral sums, the two
+    # prediction errors and error FFTs, two constrains per render channel,
+    # the frequency response.
+    per_block = (16 * L * sizes + L * P + 2 * 64 * 63 * 4 + 2 * 65 * 64 * 4
+                 + 2 * R * (64 * 63 + 65 * 64) * 4 + 3 * L * P)
+    return _bound_ms(n_bytes, float(per_block.sum()) * C * nb)
+
+
+def k6_case(dev, batch, C, R, nb, events, below_gate, seed):
+    from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor
+
+    inp = k6_inputs(batch, C, R, nb, events, seed, dev, below_gate)
+    config, geo, *args = inp.values()
+    got = cuda_subtractor.pair_cuda(config, *args)
+    want = cuda_subtractor.pair_plain(config, geo, *args)
+    torch.cuda.synchronize()
+    rel, err, unequal, splits = k6_compare(got, want)
+    shape = (f"B={batch} C={C} R={R} P={inp['st'].H.shape[2]} "
+             f"Pc={inp['st'].H_coarse.shape[2]} nb={nb} events={events} "
+             f"below_gate={below_gate}")
+    if rel > K6_RTOL or unequal:
+        raise AssertionError(
+            f"K6 differs from its twin ({shape}): {rel} of scale, failing "
+            f"leaves {unequal}, tie splits {splits}")
+    bound, by = k6_bound(inp)
+    return dict(
+        max_abs_err=err, max_rel_err=rel,
+        tie_splits=splits,
+        ms=_event_ms(lambda: cuda_subtractor.pair_cuda(config, *args), 20),
+        plain_ms=_event_ms(
+            lambda: cuda_subtractor.pair_plain(config, geo, *args), 3),
+        bound_ms=bound, bound_by=by, shape=shape)
+
+
 # --------------------------------------------------------------- inputs
 
 
-def echo_scene(n_frames, seed, streams):
+def echo_scene(n_frames, seed, streams, rate=48000, channels=2):
     """The render scene of tests/test_apm_48k_stereo.py per stream (a noise
-    burst train with a slow level swing, the same far end on both
-    channels; the phases from the stream's own generator), and the
-    capture: its echo through two short paths plus -40 dBFS noise.
-    Returns (render, capture), each (len(streams), n, 2) float32 in
-    [-1, 1], n = 480 * n_frames."""
-    n = n_frames * 480
-    t = (np.arange(n) / 48000.0).astype(np.float32)
-    render = np.empty((len(streams), n, 2), np.float32)
-    capture = np.empty((len(streams), n, 2), np.float32)
+    burst train with a slow level swing, the same far end on every
+    channel; the phases from the stream's own generator), and the capture:
+    its echo through a short path per channel (two paths in stereo) plus
+    -40 dBFS noise. Returns (render, capture), each (len(streams), n,
+    channels) float32 in [-1, 1], n = rate / 100 * n_frames."""
+    n = n_frames * rate // 100
+    t = (np.arange(n) / float(rate)).astype(np.float32)
+    render = np.empty((len(streams), n, channels), np.float32)
+    capture = np.empty((len(streams), n, channels), np.float32)
+    paths = ((0.4, 0.15, 5), (0.35, 0.12, 9))[:channels]
     for i, s in enumerate(streams):
         rng = np.random.default_rng([seed, s])
         p1, p2 = rng.uniform(0, 2 * np.pi, 2)
         burst = (np.sin(2 * np.pi * 2.3 * t + p1) > -0.2).astype(np.float32)
         level = 0.15 + 0.85 * np.abs(np.sin(2 * np.pi * 0.4 * t + p2))
         far = rng.standard_normal(n, dtype=np.float32) * (0.2 * burst * level)
-        render[i, :, 0] = far
-        render[i, :, 1] = far
-        capture[i, :, 0] = 0.4 * far + 0.15 * np.roll(far, 5)
-        capture[i, :, 1] = 0.35 * far + 0.12 * np.roll(far, 9)
-        capture[i] += 0.01 * rng.standard_normal((n, 2), dtype=np.float32)
+        for ch, (direct, late, lag) in enumerate(paths):
+            render[i, :, ch] = far
+            capture[i, :, ch] = direct * far + late * np.roll(far, lag)
+        capture[i] += 0.01 * rng.standard_normal((n, channels),
+                                                 dtype=np.float32)
     return render, capture
 
 
-def erle_db(capture, render, out):
+def erle_db(capture, render, out, frame=480):
     """ERLE over the last third as tests/test_apm_48k_stereo.py measures
-    it: capture and output power where the far end is active. Arrays
-    (S, n, 2); returns (S,) dB."""
-    n = capture.shape[1]
-    tail = slice(2 * n // 3, n - 480)
+    it: capture and output power where the far end is active, the last
+    frame left out. Arrays (S, n, channels); returns (S,) dB."""
+    n, channels = capture.shape[1:]
+    tail = slice(2 * n // 3, n - frame)
     act = np.abs(render[:, tail, 0]) > 1e-4
     e_in = (capture[:, tail] ** 2 * act[..., None]).sum(axis=(1, 2)) / (
-        2 * act.sum(axis=1)) + 1e-12
+        channels * act.sum(axis=1)) + 1e-12
     e_out = (out[:, tail] ** 2 * act[..., None]).sum(axis=(1, 2)) / (
-        2 * act.sum(axis=1)) + 1e-12
+        channels * act.sum(axis=1)) + 1e-12
     return 10 * np.log10(e_in / e_out)
 
 
@@ -384,12 +686,14 @@ def _kernel_modules():
         cuda_matched_filter,
         cuda_pre_echo,
         cuda_span,
+        cuda_subtractor,
         cuda_window,
     )
 
     return {"biquad_cascade": cuda_biquad, "span_gather": cuda_span,
             "matched_filter_nlms": cuda_matched_filter,
-            "pre_echo_inst": cuda_pre_echo, "take_windows": cuda_window}
+            "pre_echo_inst": cuda_pre_echo, "take_windows": cuda_window,
+            "subtractor_pair": cuda_subtractor}
 
 
 def _reset_counts():
@@ -422,14 +726,19 @@ def _sync_count(fn):
     return len(hits), sorted({f"{w.filename}:{w.lineno}" for w in hits})
 
 
-# ------------------------------------------------------------- AEC3 path
+# ------------------------------------------------------------ AEC3 paths
+
+# mode: (rate, channels, maximum internal rate), bench.py:30-34.
+BENCH_MODES = {"48k_stereo": (48000, 2, 48000), "16k_mono": (16000, 1, 32000)}
 
 
-def aec3_config(cfg_mod):
+def aec3_config(cfg_mod, mode="48k_stereo"):
+    """``bench.build_step``'s configuration (bench.py:53-78) for ``mode``."""
+    _, channels, internal = BENCH_MODES[mode]
     return cfg_mod.Config().replace(
-        pipeline=cfg_mod.Pipeline(multi_channel_capture=True,
-                                  multi_channel_render=True,
-                                  maximum_internal_processing_rate=48000),
+        pipeline=cfg_mod.Pipeline(multi_channel_capture=channels > 1,
+                                  multi_channel_render=channels > 1,
+                                  maximum_internal_processing_rate=internal),
         high_pass_filter=cfg_mod.HighPassFilter(enabled=True),
         echo_canceller=cfg_mod.EchoCanceller(enabled=True),
         noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
@@ -439,44 +748,81 @@ def aec3_config(cfg_mod):
     )
 
 
-def expected_aec3_launches(n_frames):
-    """Per frame pair: K1 2 HPF + 2 PostFilter + 5 render and 5 capture
-    decimations (one launch for both cascades); K2 the echo remover's four
-    chain reads per frame; K3 and K4 one per capture block; K5 one per
-    frame."""
+def aec3_geometry(mode, pair_kernel=None):
+    """The APM geometry of ``mode``; ``pair_kernel`` None follows the JAX
+    package's ``AEC3_PAIR_KERNEL`` switch."""
+    from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+    from webrtc_audio_processing_tpu_torch.models.aec3 import echo_canceller3
+
+    if pair_kernel is None:
+        pair_kernel = echo_canceller3.pair_kernel_from_env()
+    rate, channels, _ = BENCH_MODES[mode]
+    return apm.ApmGeometry.create(
+        aec3_config(cfg_mod, mode), rate, channels, render_input_rate=rate,
+        num_render_channels=channels, aec3_stereo_content=channels > 1,
+        aec3_pair_kernel=pair_kernel)
+
+
+def expected_aec3_launches(n_frames, rate=48000, pair_kernel=False):
+    """Per frame pair: K1 2 HPF + 2 PostFilter (48 kHz only) + 5 render and
+    5 capture decimations (one launch for both cascades); K2 the echo
+    remover's four chain reads per frame; K3 and K4 one per capture block;
+    K5 one per frame; K6 one per frame on the pair-kernel path."""
     pairs, odd = divmod(n_frames, 2)
     blocks = 5 * pairs + 2 * odd
-    return {"biquad_cascade": 2 * n_frames + 2 * blocks,
+    per_frame = 2 if rate == 48000 else 1
+    return {"biquad_cascade": per_frame * n_frames + 2 * blocks,
             "span_gather": 4 * n_frames,
             "matched_filter_nlms": blocks, "pre_echo_inst": blocks,
-            "take_windows": n_frames}
+            "take_windows": n_frames,
+            "subtractor_pair": n_frames if pair_kernel else 0}
 
 
-def aec3_path_phase(dev, smi):
-    from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+def _device_kernels(fn):
+    """The device operations ``fn`` runs, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@functools.lru_cache(maxsize=1)
+def _scene(mode, batch):
+    rate, channels, _ = BENCH_MODES[mode]
+    return echo_scene(AEC3_FRAMES, SEED, range(batch), rate, channels)
+
+
+def aec3_path_phase(dev, smi, path):
+    from webrtc_audio_processing_tpu_torch import apm
+
+    rate, channels, _ = BENCH_MODES[path.mode]
+    frame, Bp = rate // 100, path.batch
     t0 = time.perf_counter()
-    render, capture = echo_scene(AEC3_FRAMES, SEED, range(B))
+    render, capture = _scene(path.mode, Bp)
     ren_dev = torch.from_numpy(render).to(dev)
     cap_dev = torch.from_numpy(capture).to(dev)
     setup_s = time.perf_counter() - t0
 
-    geo = apm.ApmGeometry.create(aec3_config(cfg_mod), 48000, 2,
-                                 num_render_channels=2,
-                                 aec3_stereo_content=True)
-    state = apm.init_state(geo, B)
-    idx = torch.tensor(AEC3_CHECK, device=dev)
+    geo = aec3_geometry(path.mode, path.pair_kernel)
+    state = apm.init_state(geo, Bp)
+    idx = torch.tensor(path.check, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    outs, delays, finite = [], [], []
-    snapshots = []
-    syncs, sync_sites = None, None
+    outs, delays, finite, snapshots = [], [], [], []
+    cross = path.cross
     timer_start = torch.cuda.Event(enable_timing=True)
     timer_end = torch.cuda.Event(enable_timing=True)
     first_timed = AEC3_FRAMES - AEC3_TIMED
+    sync_frame = first_timed - 1
+    profiled = range(sync_frame - PROFILED_FRAMES, sync_frame)
 
     def step(f):
         nonlocal state
-        sl = slice(f * 480, (f + 1) * 480)
+        sl = slice(f * frame, (f + 1) * frame)
         state, out, rout, stats = apm.process_stream_pair(
             geo, state, cap_dev[:, sl], ren_dev[:, sl])
         outs.append(out[idx])
@@ -484,52 +830,62 @@ def aec3_path_phase(dev, smi):
         finite.append(torch.isfinite(out).all() & torch.isfinite(rout).all())
         return out
 
+    def run(frames):
+        for f in frames:
+            if f in cross:  # outside the profiled and sync-counted calls
+                snapshots.append(select_streams(state, idx, "cpu"))
+            if f in profiled:
+                kernels[f] = _device_kernels(lambda f=f: step(f))
+            elif f == sync_frame:
+                syncs[:] = _sync_count(lambda f=f: step(f))
+            else:
+                step(f)
+
+    kernels, syncs = {}, [None, None]
     t_run = time.perf_counter()
     _reset_counts()
-    for f in range(AEC3_FRAMES):
-        if CROSS_FROM <= f < CROSS_FROM + CROSS_FRAMES:
-            snapshots.append(select_streams(state, idx, "cpu"))
-        if f == first_timed - 1:
-            syncs, sync_sites = _sync_count(lambda f=f: step(f))
-            continue
-        if f == first_timed:
-            torch.cuda.synchronize()
-            host_t0 = time.perf_counter()
-            timer_start.record()
-        out = step(f)
+    run(range(first_timed))
+    torch.cuda.synchronize()
+    host_t0 = time.perf_counter()
+    timer_start.record()
+    run(range(first_timed, AEC3_FRAMES))
     timer_end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - host_t0) * 1000.0 / AEC3_TIMED
     dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
     run_s = time.perf_counter() - t_run
     launches = _counts()
-    want = expected_aec3_launches(AEC3_FRAMES)
+    want = expected_aec3_launches(AEC3_FRAMES, rate, path.pair_kernel)
     if launches != want:
-        raise AssertionError(f"AEC3 path launches {launches}, expected "
+        raise AssertionError(f"{path.name} launches {launches}, expected "
                              f"{want}")
     if not bool(torch.stack(finite).all()):
-        raise AssertionError("non-finite output on the AEC3 path")
-    if tuple(out.shape) != (B, 480, 2):
-        raise AssertionError(f"output shape {tuple(out.shape)}")
-    gpu_out = torch.cat(outs, dim=1).cpu().numpy()  # (2, n, 2)
-    erle = erle_db(capture[list(AEC3_CHECK)], render[list(AEC3_CHECK)],
-                   gpu_out)
-    phase("aec3_path", streams=B, frames=AEC3_FRAMES, timed_frames=AEC3_TIMED,
-          ms_per_frame=host_ms, event_ms_per_frame=dev_ms,
-          realtime_streams=B * min(10.0 / host_ms, 1.0),
+        raise AssertionError(f"non-finite output on {path.name}")
+    shape = tuple(outs[-1].shape[1:])
+    if shape != (frame, channels):
+        raise AssertionError(f"output shape {shape}")
+    gpu_out = torch.cat(outs, dim=1).cpu().numpy()  # (2, n, channels)
+    check = list(path.check)
+    erle = erle_db(capture[check], render[check], gpu_out, frame)
+    phase(path.name, mode=path.mode, streams=Bp,
+          pair_kernel=path.pair_kernel, frames=AEC3_FRAMES,
+          timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
+          event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          device_kernels_per_frame=sum(kernels.values()) / len(kernels),
           launches=launches, expected_launches=want,
-          host_syncs_per_frame=syncs, host_sync_sites=sync_sites,
+          host_syncs_per_frame=syncs[0], host_sync_sites=syncs[1],
           sync_counter_check=_sync_count(
               lambda: torch.ones(1, device=dev).item())[0],
           card=smi,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-          erle_db=dict(zip(map(str, AEC3_CHECK), erle.tolist())),
+          erle_db=dict(zip(map(str, path.check), erle.tolist())),
           input_seconds=round(setup_s, 3), run_seconds=round(run_s, 3))
     if not (erle > ERLE_BAR_DB).all():
         raise AssertionError(f"ERLE {erle} dB not above {ERLE_BAR_DB} dB")
     gpu_delay = torch.stack(delays, dim=1).cpu().numpy()
-    return (geo, snapshots, render[list(AEC3_CHECK)],
-            capture[list(AEC3_CHECK)], gpu_out, gpu_delay, launches)
+    return (geo, snapshots, render[check], capture[check], gpu_out,
+            gpu_delay), launches
 
 
 def _rel_rms(got, want):
@@ -537,45 +893,49 @@ def _rel_rms(got, want):
                    / (want ** 2).sum(axis=(1, 2)))
 
 
-def aec3_cross_check_phase(geo, snapshots, render, capture, gpu_out,
+def aec3_cross_check_phase(path, geo, snapshots, render, capture, gpu_out,
                            gpu_delay):
     from webrtc_audio_processing_tpu_torch import apm
 
-    frames = range(CROSS_FROM, CROSS_FROM + CROSS_FRAMES)
+    frame = BENCH_MODES[path.mode][0] // 100
+    frames = path.cross
+    free_frames = range(frames[0], frames[0] + FREE_FRAMES)
     t0 = time.perf_counter()
 
     def cpu_step(state, f):
-        sl = slice(f * 480, (f + 1) * 480)
+        sl = slice(f * frame, (f + 1) * frame)
         state, out, _, stats = apm.process_stream_pair(
             geo, state, torch.from_numpy(capture[:, sl].copy()),
             torch.from_numpy(render[:, sl].copy()))
         return state, out.numpy(), stats["delay_ms"].numpy()
 
-    # The check: one step from the card's state before each frame.
+    # The check: one step from the card's state before each checked frame.
     seeded = [cpu_step(snap, f)[1:] for snap, f in zip(snapshots, frames)]
     # Beside it, free running from the card's state before the first.
     state, free = snapshots[0], []
-    for f in frames:
+    for f in free_frames:
         state, out, delay = cpu_step(state, f)
         free.append((out, delay))
-    g = gpu_out[:, CROSS_FROM * 480:(CROSS_FROM + CROSS_FRAMES) * 480]
-    g_delay = gpu_delay[:, CROSS_FROM:CROSS_FROM + CROSS_FRAMES]
 
-    def compare(runs):
+    def compare(runs, fs):
+        g = np.concatenate([gpu_out[:, f * frame:(f + 1) * frame]
+                            for f in fs], axis=1)
         out = np.concatenate([o for o, _ in runs], axis=1)
         delay = np.stack([d for _, d in runs], axis=1)
-        per_frame = [_rel_rms(g[:, k * 480:(k + 1) * 480],
-                              out[:, k * 480:(k + 1) * 480]).max()
-                     for k in range(CROSS_FRAMES)]
-        first = next((k for k, e in enumerate(per_frame) if e > RTOL_RMS),
+        per_frame = [_rel_rms(g[:, k * frame:(k + 1) * frame],
+                              out[:, k * frame:(k + 1) * frame]).max()
+                     for k in range(len(fs))]
+        first = next((f for f, e in zip(fs, per_frame) if e > RTOL_RMS),
                      None)
-        return (_rel_rms(g, out), bool((delay == g_delay).all()),
-                None if first is None else CROSS_FROM + first)
+        return (_rel_rms(g, out),
+                bool((delay == gpu_delay[:, list(fs)]).all()), first)
 
-    rel, same_delay, _ = compare(seeded)
-    free_rel, free_delay, free_first = compare(free)
-    phase("aec3_cross_check", streams=list(AEC3_CHECK), frames=CROSS_FRAMES,
-          first_frame=CROSS_FROM, rel_rms=rel.tolist(),
+    rel, same_delay, _ = compare(seeded, frames)
+    free_rel, free_delay, free_first = compare(free, free_frames)
+    phase(f"{path.name}_cross_check", streams=list(path.check),
+          frames=len(frames),
+          checked=f"{frames.start}:{frames.stop}:{frames.step}",
+          free_running_frames=len(free_frames), rel_rms=rel.tolist(),
           delay_ms_equal=same_delay,
           free_running_rel_rms=free_rel.tolist(),
           free_running_delay_ms_equal=free_delay,
@@ -720,22 +1080,29 @@ def main():
     dev = torch.device("cuda", 0)
     build_phase()
     rows = kernels_phase(dev)
-    t0 = time.perf_counter()
-    geo, snapshots, ren, cap, gpu_out, gpu_delay, launches = \
-        aec3_path_phase(dev, smi)
-    t1 = time.perf_counter()
-    aec3_cross_check_phase(geo, snapshots, ren, cap, gpu_out, gpu_delay)
+    walls, launches = {}, {}
+    for path in AEC3_PATHS:
+        t0 = time.perf_counter()
+        run, launches[path.name] = aec3_path_phase(dev, smi, path)
+        t1 = time.perf_counter()
+        aec3_cross_check_phase(path, *run)
+        walls[path.name] = round(t1 - t0, 3)
+        walls[f"{path.name}_cross_check"] = round(time.perf_counter() - t1, 3)
     t2 = time.perf_counter()
     slice_path_phase(dev, smi)
     t3 = time.perf_counter()
-    phase("wall_seconds", aec3_path=round(t1 - t0, 3),
-          aec3_cross_check=round(t2 - t1, 3), slice_path=round(t3 - t2, 3),
+    phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           total=round(t3 - t_all, 3))
+    # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
+    # pair-kernel path, K1-K5 on the default one; every path beside them.
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        main_path = ("pair_kernel_48k" if r["name"] == "subtractor_pair"
+                     else "aec3_path")
+        r["launches"] = launches[main_path][r["name"]]
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_note")
+            "library_note", "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

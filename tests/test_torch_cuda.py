@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
 from webrtc_audio_processing_tpu_torch.models import post_filter
 from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
@@ -19,6 +21,7 @@ from webrtc_audio_processing_tpu_torch.ops import (
     cuda_matched_filter,
     cuda_pre_echo,
     cuda_span,
+    cuda_subtractor,
     cuda_window,
 )
 
@@ -204,3 +207,52 @@ def test_aec3_path_runs_through_every_kernel(device):
     assert torch.isfinite(out).all() and out.shape == (8, 480, 2)
     assert [m.launches - b for m, b in zip(mods, before)] == [28, 16, 10, 10,
                                                              4]
+
+
+@pytest.mark.parametrize("events", [False, True])
+@pytest.mark.parametrize("nb", [2, 3])
+@pytest.mark.parametrize("C,R", [(2, 2), (1, 1)])
+def test_k6_matches_twin(device, C, R, nb, events):
+    """K6 at the 48 kHz stereo (C = R = 2, P = 13, Pc = 11) and 16 kHz mono
+    (C = R = 1, P = Pc = 13) geometries: float leaves within 2e-3 of their
+    scale (tests/test_subtractor_pallas.py's bar), integer leaves exact
+    (with chip_smoke.k6_compare's rule for refined/coarse ties)."""
+    _check_k6(device, C, R, nb, events, below_gate=False)
+
+
+@pytest.mark.parametrize("nb", [2, 3])
+@pytest.mark.parametrize("C,R", [(2, 2), (1, 1)])
+def test_k6_matches_twin_below_the_noise_gate(device, C, R, nb):
+    """The same with render spectra below the gains' noise gate, where
+    refined and coarse error energies tie to ulps after a coarse reset and
+    the tie rule decides which integer differences are rounding."""
+    _check_k6(device, C, R, nb, False, below_gate=True)
+
+
+def _check_k6(device, C, R, nb, events, below_gate):
+    inp = chip_smoke.k6_inputs(256, C, R, nb, events, seed=nb + 2 * C,
+                               device=device, below_gate=below_gate)
+    args = tuple(inp.values())
+    before = cuda_subtractor.launches
+    got = cuda_subtractor.pair(*args)
+    want = cuda_subtractor.pair_plain(*args)
+    torch.cuda.synchronize()
+    rel, _, unequal, _ = chip_smoke.k6_compare(got, want)
+    assert rel <= chip_smoke.K6_RTOL and not unequal, (rel, unequal)
+    assert cuda_subtractor.launches - before == 1
+
+
+@pytest.mark.parametrize("mode", ["48k_stereo", "16k_mono"])
+def test_pair_kernel_path_launches_k6_once_per_frame(device, mode):
+    geo = chip_smoke.aec3_geometry(mode, pair_kernel=True)
+    rate, channels, _ = chip_smoke.BENCH_MODES[mode]
+    state = apm.init_state(geo, 8, device)
+    rng = np.random.default_rng(1)
+    before = cuda_subtractor.launches
+    for _ in range(4):
+        x = torch.from_numpy(rng.uniform(-0.3, 0.3, (
+            8, rate // 100, channels)).astype(np.float32)).to(device)
+        state, out, _, _ = apm.process_stream_pair(geo, state, x, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert cuda_subtractor.launches - before == 4

@@ -1,11 +1,12 @@
 """Where the time of one step goes: the PyTorch port on the card.
 
-    python3 tools/torch_step_profile.py [--batch 2048] [--frames 10] [--no-aec3]
+    python3 tools/torch_step_profile.py [--batch 2048] [--frames 10]
+        [--mode 48k_stereo|16k_mono] [--pair-kernel] [--no-aec3]
 
-Drives ``apm.process_stream_pair`` at the bench's 48 kHz stereo
-configuration (HPF, multichannel AEC3, NS, AGC2; ``--no-aec3`` drops the
-echo canceller) on the echo scene of ``chip_smoke.py`` and prints JSON
-lines:
+Drives ``apm.process_stream_pair`` at one of the bench's configurations
+(HPF, AEC3, NS, AGC2; ``--no-aec3`` drops the echo canceller,
+``--pair-kernel`` runs AEC3's subtractor on K6) on the echo scene of
+``chip_smoke.py`` and prints JSON lines:
 
 - ``stages``: host milliseconds per frame of each stage, each stage call
   wrapped in ``torch.cuda.synchronize()`` (nested stages are included in
@@ -51,6 +52,7 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (  # noqa: E402
     echo_remover,
     render_buffer,
     subtractor,
+    subtractor_kernel,
 )
 from webrtc_audio_processing_tpu_torch.models.agc2 import (  # noqa: E402
     gain_controller2,
@@ -82,6 +84,7 @@ STAGES = [
     (echo_remover, "process_capture_pair", "AEC3 · echo remover"),
     (subtractor, "analyzer_update", "AEC3 · · render analyzer"),
     (subtractor, "process_pair", "AEC3 · · subtractor"),
+    (subtractor_kernel, "process_pair_kernel", "AEC3 · · subtractor (K6)"),
     (aec_state, "update", "AEC3 · · AEC state"),
     (echo_remover, "comfort_noise_compute", "AEC3 · · comfort noise"),
     (echo_remover, "residual_echo_estimate", "AEC3 · · residual echo"),
@@ -113,6 +116,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--mode", default="48k_stereo",
+                    choices=sorted(chip_smoke.BENCH_MODES))
+    ap.add_argument("--pair-kernel", action="store_true")
     ap.add_argument("--no-aec3", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -125,18 +131,22 @@ def main():
     dev = torch.device("cuda")
     B, warm, n = args.batch, 10, args.frames
     total = warm + n + 4
-    render, capture = chip_smoke.echo_scene(total, chip_smoke.SEED, range(B))
+    rate, channels, _ = chip_smoke.BENCH_MODES[args.mode]
+    frame = rate // 100
+    render, capture = chip_smoke.echo_scene(total, chip_smoke.SEED, range(B),
+                                            rate, channels)
     ren, cap = torch.from_numpy(render).to(dev), torch.from_numpy(
         capture).to(dev)
-    config = (chip_smoke.slice_config(cfg_mod) if args.no_aec3
-              else chip_smoke.aec3_config(cfg_mod))
-    geo = apm.ApmGeometry.create(config, 48000, 2, num_render_channels=2,
-                                 aec3_stereo_content=True)
+    if args.no_aec3:
+        geo = apm.ApmGeometry.create(chip_smoke.slice_config(cfg_mod), 48000,
+                                     2, num_render_channels=2)
+    else:
+        geo = chip_smoke.aec3_geometry(args.mode, args.pair_kernel)
     state = apm.init_state(geo, B)
 
     def step(f):
         nonlocal state
-        sl = slice(f * 480, (f + 1) * 480)
+        sl = slice(f * frame, (f + 1) * frame)
         state, out, _, _ = apm.process_stream_pair(geo, state, cap[:, sl],
                                                    ren[:, sl])
         return out
@@ -157,7 +167,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(json.dumps({"event": "step", "batch": B, "aec3": not args.no_aec3,
+    print(json.dumps({"event": "step", "batch": B, "mode": args.mode,
+                      "aec3": not args.no_aec3,
+                      "pair_kernel": geo.aec3 is not None
+                      and geo.aec3.pair_kernel,
                       "ms_per_frame": step_ms, "card": smi}))
     print(json.dumps({"event": "stages", "ms_per_frame": {
         k: v * 1e3 / n for k, v in sorted(TIMES.items(),

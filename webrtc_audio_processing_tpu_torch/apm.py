@@ -21,7 +21,10 @@ Usage, with B streams on one device::
 functions keep one per geometry and device. AEC3 runs its blocks on a
 static cadence: the state carries a plain frame counter, uniform across the
 batch, from which each step takes its parity and block ordinal; the AEC3
-render rings are updated in place. Everything outside this chain raises
+render rings are updated in place. AEC3's subtractor runs as plain PyTorch
+unless ``aec3_pair_kernel`` is true, when it runs on the pair kernel K6
+(``ec3.pair_kernel_from_env`` reads the JAX package's ``AEC3_PAIR_KERNEL``
+switch for a caller that wants it). Everything outside this chain raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -123,6 +126,7 @@ class ApmGeometry:
         debug_taps: bool = False,
         aec3_stereo_content: bool = False,
         aec3_ring_dtype: str = "float32",
+        aec3_pair_kernel: bool = False,
     ) -> "ApmGeometry":
         if injections is not None:
             raise NotImplementedError(
@@ -178,7 +182,8 @@ class ApmGeometry:
             active_cfg, _valid = aec3_config.validate(active_cfg)
             aec_geo = ec3.Aec3Geometry.create(
                 active_cfg, cap_rate, ren_channels if stereo_proc else 1,
-                cap_ch, debug_taps=debug_taps, ring_dtype=aec3_ring_dtype)
+                cap_ch, debug_taps=debug_taps, ring_dtype=aec3_ring_dtype,
+                pair_kernel=aec3_pair_kernel)
         elif debug_taps:
             raise NotImplementedError(
                 f"AEC3 debug taps {ec3._ITEM_11}")

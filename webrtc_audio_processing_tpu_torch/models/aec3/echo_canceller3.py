@@ -7,13 +7,18 @@ render and capture frame; the 2-or-3 blocks-per-frame cadence is the static
 frame parity, and the ring write positions follow the block ordinal ``n0``,
 both plain Python ints uniform across the batch.
 
-Only the default path is ported: the pair-phase capture path
-(``pair_phase=True``) with the XLA-form subtractor (``pair_kernel=False``).
+Only the pair-phase capture path (``pair_phase=True``) is ported. Its
+subtractor is the plain ``subtractor.process_pair`` by default, or the pair
+kernel K6 with ``pair_kernel=True`` (see ``echo_remover.process_capture_pair``).
+The geometry takes the choice as an argument only; a script that follows the
+JAX package's ``AEC3_PAIR_KERNEL`` switch reads it with
+``pair_kernel_from_env``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import torch
@@ -23,6 +28,7 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
     echo_remover as er,
     multi_channel_content_detector as mccd,
     render_buffer as rb,
+    subtractor_kernel,
 )
 from webrtc_audio_processing_tpu_torch.models.aec3.config import (
     EchoCanceller3Config,
@@ -35,6 +41,13 @@ FRAME_SIZE = 160
 _ITEM_11 = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 
+def pair_kernel_from_env() -> bool:
+    """The JAX package's ``AEC3_PAIR_KERNEL`` switch
+    (webrtc_audio_processing_tpu/models/aec3/echo_canceller3.py:75-83): on
+    only for exactly "1", off when unset."""
+    return os.environ.get("AEC3_PAIR_KERNEL", "0") == "1"
+
+
 @dataclass(frozen=True)
 class Aec3Geometry:
     config: EchoCanceller3Config
@@ -44,6 +57,8 @@ class Aec3Geometry:
     num_capture_channels: int
     buffer: rb.BufferGeometry
     delay: de.DelayGeometry
+    # The subtractor on the pair kernel K6 (ops/cuda_subtractor.py).
+    pair_kernel: bool = False
 
     @staticmethod
     def create(config: EchoCanceller3Config, sample_rate_hz: int,
@@ -53,10 +68,6 @@ class Aec3Geometry:
                ring_dtype: str = "float32",
                pair_phase: bool = True,
                pair_kernel: bool = False) -> "Aec3Geometry":
-        if pair_kernel:
-            raise NotImplementedError(
-                "the subtractor pair kernel (pair_kernel=True) is not ported "
-                "yet (ROADMAP Queue 2, K6)")
         unported = [
             (not pair_phase,
              "the per-block AEC3 capture path (pair_phase=False)"),
@@ -65,6 +76,11 @@ class Aec3Geometry:
              "the injected neural residual echo estimator"),
             (config.delay.fixed_capture_delay_samples > 0,
              "the fixed capture pre-delay"),
+            # The JAX twin runs the XLA subtractor there instead
+            # (echo_remover.py:1051-1056); the port has no second route.
+            (pair_kernel and not subtractor_kernel.supported(config),
+             "the pair kernel with a coarse filter longer than the refined "
+             "one"),
         ]
         for bad, what in unported:
             if bad:
@@ -79,6 +95,7 @@ class Aec3Geometry:
                                             num_render,
                                             ring_dtype=ring_dtype),
             delay=de.DelayGeometry.create(config),
+            pair_kernel=pair_kernel,
         )
 
 
@@ -266,7 +283,8 @@ def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
     remover, outs, linears = er.process_capture_pair(
         cfg, state.remover, geo.buffer, views, c_blocks, dchanges,
         torch.zeros_like(state.saturated_microphone),
-        state.saturated_microphone, edelays, evalids)
+        state.saturated_microphone, edelays, evalids,
+        pair_kernel=geo.pair_kernel)
     state = state.replace(remover=remover)
 
     out_frame, out_carry = _frame_from_blocks(

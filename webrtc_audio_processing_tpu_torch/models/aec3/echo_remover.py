@@ -23,6 +23,7 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
     render_buffer as rb,
     reverb_decay_estimator as rde,
     subtractor as subt,
+    subtractor_kernel,
 )
 from webrtc_audio_processing_tpu_torch.models.aec3.config import (
     EchoCanceller3Config,
@@ -661,14 +662,19 @@ def process_capture_pair(config: EchoCanceller3Config,
                          state: EchoRemoverState, geo: rb.BufferGeometry,
                          views, capture_blocks, delay_changes, gain_change,
                          capture_signal_saturation, external_delays,
-                         external_delay_valids):
+                         external_delay_valids, pair_kernel: bool = False):
     """EchoRemoverImpl::ProcessCapture (echo_remover.cc:236-450) for all
     capture blocks of one frame, in the JAX twin's three phases:
 
     A) the render windows of the frame as two chains per ring (four K2
        reads per frame), the render-signal analyzer and the gain-change
        hangover;
-    B) the subtractor over all blocks (``subtractor.process_pair``);
+    B) the subtractor over all blocks: ``subtractor.process_pair`` on the
+       per-block FFT windows, or, with ``pair_kernel``, the pair kernel K6
+       on the sf chain and the blocks' offsets into it
+       (``subtractor_kernel.process_pair_kernel``). The geometry allows
+       ``pair_kernel`` only where the coarse filter is no longer than the
+       refined one (``subtractor_kernel.supported``);
     C) per block: AEC state, comfort noise, residual echo, suppression.
 
     views: one rb.RenderView per block; capture_blocks (B, bands, 64, C)
@@ -718,13 +724,13 @@ def process_capture_pair(config: EchoCanceller3Config,
         return torch.where(off_b <= nb - 1, width + off_b,
                            torch.clamp(off_a, 0, nb - 1))
 
-    spec_wins, X_windows, blocks_wins = [], [], []
+    sf_offs, spec_wins, X_windows, blocks_wins = [], [], [], []
     for k in range(nb):
-        rows = rb.window_slice(
-            sf_chain, chain_offset(sf_starts[k], sf_a, sf_b, W_chain),
-            spec_win_len)
+        sf_offs.append(chain_offset(sf_starts[k], sf_a, sf_b, W_chain))
+        rows = rb.window_slice(sf_chain, sf_offs[k], spec_win_len)
         spec_wins.append(rb.sf_spectrum(geo, rows))
-        X_windows.append(rb.sf_fft(geo, rows[:, :p_ref_max]))
+        if not pair_kernel:
+            X_windows.append(rb.sf_fft(geo, rows[:, :p_ref_max]))
         brows = rb.window_slice(
             b_chain, chain_offset(b_starts[k], b_a, b_b, W_bchain), W_b)
         blocks_wins.append(rb.blocks_rows(geo, torch.flip(brows, dims=[1])))
@@ -745,15 +751,18 @@ def process_capture_pair(config: EchoCanceller3Config,
 
     # Phase B: the subtractor over all blocks.
     transition0 = state.aec.transition_triggered
-    no_transition = torch.zeros_like(transition0)
-    sub_state, sub_outs = subt.process_pair(
-        config, state.subtractor, X_windows,
-        [w[:, :p_ref_max] for w in spec_wins], y0s,
-        [subt.narrow_zero_mask(a) for a in analyzer_states],
-        [subt.poor_signal_excitation(a) for a in analyzer_states],
-        delay_changes,
-        [transition0] + [no_transition] * (nb - 1),
-        capture_signal_saturation)
+    transitions = [transition0] + [torch.zeros_like(transition0)] * (nb - 1)
+    masks = [subt.narrow_zero_mask(a) for a in analyzer_states]
+    poors = [subt.poor_signal_excitation(a) for a in analyzer_states]
+    if pair_kernel:
+        sub_state, sub_outs = subtractor_kernel.process_pair_kernel(
+            config, geo, state.subtractor, sf_chain, sf_offs, y0s, masks,
+            poors, delay_changes, transitions, capture_signal_saturation)
+    else:
+        sub_state, sub_outs = subt.process_pair(
+            config, state.subtractor, X_windows,
+            [w[:, :p_ref_max] for w in spec_wins], y0s, masks, poors,
+            delay_changes, transitions, capture_signal_saturation)
 
     # Phase C: per-block AEC state, comfort noise, residual, suppression.
     aec = state.aec.replace(

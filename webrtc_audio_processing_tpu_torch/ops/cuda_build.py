@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("biquad.cu", "window.cu", "span.cu", "matched_filter.cu",
-           "pre_echo.cu")
+           "pre_echo.cu", "subtractor.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +45,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, ctypes.c_float, _I, _I, _P),
     # seg, h0, alphas, y, out, B, sub, taps, acc_rate, stream
     "pre_echo_inst_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # 13 inputs, 13 outputs, B, C, P, Pc, R, W2, F, nb, the host-side
+    # float and int constants, stream
+    "subtractor_pair_f32": (_P,) * 26 + (_I,) * 8 + (
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int), _P),
 }
 
 
