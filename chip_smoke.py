@@ -15,9 +15,13 @@ exits non-zero without a result line:
    pair kernel, at 48 kHz stereo for 2 and 3 blocks with and without
    events, and at 16 kHz mono; both geometries also with render spectra
    below the gains' noise gate) against their plain PyTorch twins on the
-   card at the main paths' shapes, with CUDA-event times of kernel, twin
-   and, for K2 and K5, the one PyTorch call that computes the same
-   function (``torch.gather`` on a prebuilt index).
+   card at the main paths' shapes. Each row gives the call time (CUDA
+   events around back-to-back calls from Python: what a caller pays, host
+   work included), the device time (the calls captured in a CUDA graph
+   and replayed: the kernel alone), the device kernels one call runs, the
+   twin's call time and, for K2 and K5, the same two times of the one
+   PyTorch call that computes the same function (``torch.gather`` on a
+   prebuilt index).
 4. Three AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
    and AGC2 (the bench's configurations, bench.py:30-78), each 300 frames
    (3 s) of an echo scene with the last 100 frames timed:
@@ -28,8 +32,8 @@ exits non-zero without a result line:
    Every kernel must launch the number of times the code implies (K6 once
    per frame on the pair-kernel paths, never on the plain one), and the
    echo must be cancelled (ERLE over the last third above 6 dB,
-   tests/test_apm_48k_stereo.py's bar). Two profiled frames count the
-   device kernels per frame.
+   tests/test_apm_48k_stereo.py's bar). Three profiled frames count the
+   device kernels per frame (the first is the profiler's warm-up).
 5. After each path, its cross-check: two streams rerun on the CPU by the
    same port (plain twins) from the card's state before each checked frame
    (every third or fourth frame from 76 to 195, the untimed run after the
@@ -45,10 +49,15 @@ exits non-zero without a result line:
 
 Before the last line the kernel table as JSON, then the result JSON. The
 script imports no JAX.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 alone and prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
@@ -68,7 +77,7 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
-PROFILED_FRAMES = 2
+PROFILED_FRAMES = 3  # the first is the profiler's warm-up
 FREE_FRAMES = 20
 
 # K6 against its twin: 2e-3 of each float leaf's scale
@@ -171,17 +180,56 @@ def build_phase():
           ptxas=regs)
 
 
-def _event_ms(fn, n):
+def _event_ms(fn, n, rounds=5):
+    """Call time: CUDA events around ``n`` back-to-back calls from Python,
+    per call, the median of ``rounds`` rounds (the card's host is shared,
+    and a round can catch another tenant's burst)."""
     fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def _graph_ms(fn, n, replays=5):
+    """Device time per call: ``n`` calls of ``fn`` captured in one CUDA
+    graph (after a warm-up outside the capture), the graph replayed
+    ``replays`` times between two CUDA events. The Python and dispatch
+    cost of each call stays out; the inputs stay in L2 where they fit,
+    as on the path, where the producing kernel ran just before."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(n):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return start.elapsed_time(end) / (n * replays)
+
+
+def _times(fn, n_call, n_graph):
+    """A wrapper's call time, device time and device kernels per call."""
+    return dict(ms=_event_ms(fn, n_call), device_ms=_graph_ms(fn, n_graph),
+                device_kernels_per_call=_device_kernels([fn] * 5, [fn] * 5))
 
 
 def _bound_ms(n_bytes, n_ops=0.0, chain_s=0.0):
@@ -217,11 +265,18 @@ def _k1_case(dev, rng, coeffs_np, T, M):
     if not (torch.equal(y_k, y_p) and torch.equal(st_k, st_p)):
         raise AssertionError(f"K1 differs from its twin at K={K}, T={T}, "
                              f"M={M}: max |diff| {err}")
+    # The least time of the work, not of one design: one read and one write
+    # of the frame and the state, or the recurrence's own chain, whichever
+    # is longer. Each output depends on the one before it only through the
+    # two feedback multiply-adds (the x-side terms can be computed ahead),
+    # and the K sections can run skewed by one sample each, so the chain is
+    # 2 dependent multiply-adds per sample plus the 4K of filling the
+    # cascade once.
     bound, by = _bound_ms((2 * T * M + 8 * K * M) * 4,
-                          chain_s=T * K * 4 * DEP_OP_S)
+                          chain_s=(2 * T + 4 * K) * DEP_OP_S)
     return dict(
         max_abs_err=err,
-        ms=_event_ms(lambda: cuda_biquad.cascade_cuda(coeffs, st, x_t), 50),
+        **_times(lambda: cuda_biquad.cascade_cuda(coeffs, st, x_t), 50, 50),
         plain_ms=_event_ms(lambda: cuda_biquad.cascade_plain(coeffs, st,
                                                              x_t), 2),
         bound_ms=bound, bound_by=by, shape=f"K={K} T={T} M={M}",
@@ -255,7 +310,7 @@ def kernels_phase(dev):
         name="biquad_cascade", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/biquad.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_biquad.py:32",
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
         library_note="none: no core PyTorch call runs a biquad cascade",
         other_shapes=others, **k1,
     ))
@@ -278,11 +333,13 @@ def kernels_phase(dev):
         bound, by = _bound_ms(2 * B * W * F * 4)
         return dict(
             max_abs_err=err,
-            ms=_event_ms(lambda: cuda_span.span_gather_cuda(ring, start, W),
-                         200),
+            **_times(lambda: cuda_span.span_gather_cuda(ring, start, W),
+                     200, 50),
             plain_ms=_event_ms(
                 lambda: cuda_span.span_gather_plain(ring, start, W), 50),
             library_ms=_event_ms(lambda: torch.gather(ring, 1, idx), 200),
+            library_device_ms=_graph_ms(lambda: torch.gather(ring, 1, idx),
+                                        50),
             bound_ms=bound, bound_by=by, shape=f"B={B} LP=200 W={W} F={F}")
 
     k2 = k2_case(19, 512)
@@ -321,11 +378,11 @@ def kernels_phase(dev):
         max_abs_err=max(float((g - w).abs().max())
                         for g, w in zip(got[:3], want[:3])),
         max_rel_err=rel,
-        ms=_event_ms(lambda: cuda_matched_filter.nlms_cuda(
-            low, lr, h0, y, sm, **kw), 50),
+        **_times(lambda: cuda_matched_filter.nlms_cuda(
+            low, lr, h0, y, sm, **kw), 50, 20),
         plain_ms=_event_ms(lambda: cuda_matched_filter.nlms_plain(
             low, lr, h0, y, sm, **kw), 5),
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call runs a per-sample NLMS",
         bound_ms=bound, bound_by=by, shape=f"B={B} N=5 taps=512 sub=16"))
 
@@ -347,19 +404,19 @@ def kernels_phase(dev):
         source="webrtc_audio_processing_tpu_torch/csrc/pre_echo.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_pre_echo.py:59",
         max_abs_err=float((pe_k - pe_p).abs().max()), max_norm_err=norm,
-        ms=_event_ms(lambda: cuda_pre_echo.pre_echo_cuda(seg, h0w, al, y, 4),
-                     200),
+        **_times(lambda: cuda_pre_echo.pre_echo_cuda(seg, h0w, al, y, 4),
+                 200, 50),
         plain_ms=_event_ms(lambda: cuda_pre_echo.pre_echo_plain(
             seg, h0w, al, y, 4), 10),
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call computes the chunked errors",
         bound_ms=bound, bound_by=by, shape=f"B={B} taps=512 sub=16"))
 
-    # K5 at the RNN-VAD's shapes: B = 2048, L = 864, W = 480.
+    # K5 at the RNN-VAD's shapes: B = 2048, L = 864, W = 480, with the
+    # int64 starts the pitch search gives it (rnn_vad/features.py).
     buf = torch.from_numpy(
         rng.standard_normal((B, 864)).astype(np.float32)).to(dev)
-    start = torch.from_numpy(
-        rng.integers(0, 385, B).astype(np.int32)).to(dev)
+    start = torch.from_numpy(rng.integers(0, 385, B)).to(dev)
     w_k = cuda_window.take_windows_cuda(buf, start, 480)
     w_p = cuda_window.take_windows_plain(buf, start, 480)
     torch.cuda.synchronize()
@@ -373,11 +430,12 @@ def kernels_phase(dev):
         source="webrtc_audio_processing_tpu_torch/csrc/window.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_window.py:21",
         max_abs_err=err,
-        ms=_event_ms(lambda: cuda_window.take_windows_cuda(buf, start, 480),
-                     200),
+        **_times(lambda: cuda_window.take_windows_cuda(buf, start, 480),
+                 200, 50),
         plain_ms=_event_ms(
             lambda: cuda_window.take_windows_plain(buf, start, 480), 200),
         library_ms=_event_ms(lambda: torch.gather(buf, 1, idx), 200),
+        library_device_ms=_graph_ms(lambda: torch.gather(buf, 1, idx), 50),
         library_note="torch.gather with a prebuilt index",
         bound_ms=bound, bound_by=by, shape=f"B={B} L=864 W=480"))
 
@@ -389,7 +447,7 @@ def kernels_phase(dev):
         name="subtractor_pair", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/subtractor.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_subtractor.py:154",
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call runs the subtractor loop",
         other_shapes={k: v for k, v in k6.items() if k != "48k_stereo_nb3"},
         **k6["48k_stereo_nb3"]))
@@ -615,7 +673,7 @@ def k6_case(dev, batch, C, R, nb, events, below_gate, seed):
     return dict(
         max_abs_err=err, max_rel_err=rel,
         tie_splits=splits,
-        ms=_event_ms(lambda: cuda_subtractor.pair_cuda(config, *args), 20),
+        **_times(lambda: cuda_subtractor.pair_cuda(config, *args), 20, 10),
         plain_ms=_event_ms(
             lambda: cuda_subtractor.pair_plain(config, geo, *args), 3),
         bound_ms=bound, bound_by=by, shape=shape)
@@ -778,17 +836,26 @@ def expected_aec3_launches(n_frames, rate=48000, pair_kernel=False):
             "subtractor_pair": n_frames if pair_kernel else 0}
 
 
-def _device_kernels(fn):
-    """The device operations ``fn`` runs, counted by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_kernels(warm, counted):
+    """The device operations per call over the calls in ``counted``, by
+    torch.profiler, after the calls in ``warm`` as the profiler's warm-up
+    step, whose records it discards (sessions without one lost the device
+    records of whole calls on the card's machine). The step's own range
+    on the device (``ProfilerStep#``) is not an operation."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for calls in (warm, counted):
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA)
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.key.startswith("ProfilerStep")) / len(counted)
 
 
 @functools.lru_cache(maxsize=1)
@@ -834,14 +901,18 @@ def aec3_path_phase(dev, smi, path):
         for f in frames:
             if f in cross:  # outside the profiled and sync-counted calls
                 snapshots.append(select_streams(state, idx, "cpu"))
-            if f in profiled:
-                kernels[f] = _device_kernels(lambda f=f: step(f))
+            if f == profiled[0]:  # the profiler's warm-up, then the rest
+                kernels.append(_device_kernels(
+                    [lambda f=f: step(f)],
+                    [lambda g=g: step(g) for g in profiled[1:]]))
+            elif f in profiled:
+                continue  # stepped in the profiler's session
             elif f == sync_frame:
                 syncs[:] = _sync_count(lambda f=f: step(f))
             else:
                 step(f)
 
-    kernels, syncs = {}, [None, None]
+    kernels, syncs = [], [None, None]
     t_run = time.perf_counter()
     _reset_counts()
     run(range(first_timed))
@@ -872,7 +943,7 @@ def aec3_path_phase(dev, smi, path):
           timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
           event_ms_per_frame=dev_ms,
           realtime_streams=Bp * min(10.0 / host_ms, 1.0),
-          device_kernels_per_frame=sum(kernels.values()) / len(kernels),
+          device_kernels_per_frame=kernels[0],
           launches=launches, expected_launches=want,
           host_syncs_per_frame=syncs[0], host_sync_sites=syncs[1],
           sync_counter_check=_sync_count(
@@ -1074,12 +1145,20 @@ def slice_path_phase(dev, smi):
         raise AssertionError(f"speech probability differs by {dprob}")
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run the device, build and kernel phases only "
+                             "and print no result line")
+    args = parser.parse_args(argv)
     t_all = time.perf_counter()
     smi = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
     rows = kernels_phase(dev)
+    if args.kernels_only:
+        phase("wall_seconds", total=round(time.perf_counter() - t_all, 3))
+        return 0
     walls, launches = {}, {}
     for path in AEC3_PATHS:
         t0 = time.perf_counter()
@@ -1101,8 +1180,9 @@ def main():
         r["launches"] = launches[main_path][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_note", "launches_by_path")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "library_note",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

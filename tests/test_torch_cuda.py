@@ -56,16 +56,25 @@ def test_k1_matches_twin_bit_for_bit(device, lanes, rate):
     assert torch.equal(y_k.cpu(), y_c) and torch.equal(st_k.cpu(), st_c)
 
 
-def test_k5_matches_twin_bit_for_bit(device):
-    rng = np.random.default_rng(5)
-    buf = torch.from_numpy(rng.standard_normal((2048, 864)).astype(np.float32))
-    start = torch.from_numpy(rng.integers(-900, 900, 2048).astype(np.int32))
-    got = cuda_window.take_windows(buf.to(device), start.to(device), 480)
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("B,L,W", [(2048, 864, 480), (13, 864, 480),
+                                   (13, 863, 479)])
+def test_k5_matches_twin_bit_for_bit(device, B, L, W, dtype):
+    """Starts of every residue mod 4 (the shift within a 16-byte line),
+    negative and past L - W, as int32 and int64; B not a multiple of the 8
+    rows per block; a row and width off the 16-byte grid (the per-float
+    copy)."""
+    rng = np.random.default_rng(B + L)
+    buf = torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32))
+    start = rng.integers(-900, 900, B)
+    start[:8] = (0, 1, 2, 3, L - W - 1, L - W, -1, -L - 5)
+    start = torch.from_numpy(start.astype(dtype))
+    got = cuda_window.take_windows(buf.to(device), start.to(device), W)
     want = cuda_window.take_windows_plain(buf.to(device), start.to(device),
-                                          480)
+                                          W)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert torch.equal(got.cpu(), cuda_window.take_windows(buf, start, 480))
+    assert torch.equal(got.cpu(), cuda_window.take_windows(buf, start, W))
 
 
 def test_slice_runs_through_both_kernels(device):
@@ -91,6 +100,34 @@ def test_slice_runs_through_both_kernels(device):
     assert torch.isfinite(out).all() and out.shape == (8, 480, 2)
     assert cuda_biquad.launches - k1 == 3
     assert cuda_window.launches - k5 == 3
+
+
+def _random_table(rng, K):
+    """K stable sections; every other section has b0 = b2 = 1, as the
+    port's tables do after their first."""
+    poles = rng.uniform(0.5, 0.95, K)
+    b = np.stack([rng.uniform(0.2, 1.2, K), -rng.uniform(0.2, 1.5, K),
+                  rng.uniform(0.2, 1.2, K)], 1)
+    b[1::2, 0] = b[1::2, 2] = 1.0
+    a = np.stack([-2 * poles * 0.9, poles ** 2], 1)
+    return biquad.pack_coeffs(b, a)
+
+
+@pytest.mark.parametrize("T,M", [(1, 63), (3, 4100), (50, 63), (480, 4100)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_k1_skew_fill_and_drain_match_twin(device, K, T, M):
+    """The skewed cascade's fill and drain: T below K, T not a multiple of
+    the 32-sample chunk, M not a multiple of the 32-lane block."""
+    rng = np.random.default_rng(100 * K + T)
+    c = torch.from_numpy(_random_table(rng, K)).to(device)
+    x = torch.from_numpy(
+        (rng.standard_normal((T, M)) * 3000).astype(np.float32)).to(device)
+    st = torch.from_numpy(
+        (rng.standard_normal((4 * K, M)) * 1000).astype(np.float32)).to(device)
+    st_k, y_k = cuda_biquad.cascade(c, st, x)
+    st_p, y_p = cuda_biquad.cascade_plain(c, st, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
 
 
 def _decimator_table():
@@ -256,3 +293,69 @@ def test_pair_kernel_path_launches_k6_once_per_frame(device, mode):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert cuda_subtractor.launches - before == 4
+
+
+def _leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
+
+
+def _k6_call(device):
+    inp = chip_smoke.k6_inputs(64, 2, 2, 3, True, seed=7, device=device)
+    config, _, *args = inp.values()
+    return lambda: cuda_subtractor.pair_cuda(config, *args)
+
+
+def _kernel_calls(device):
+    """One wrapper call per kernel at a small shape, on fixed inputs."""
+    rng = np.random.default_rng(9)
+
+    def t(shape, scale=1.0, dtype=np.float32):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(dtype)).to(device)
+
+    coeffs = torch.from_numpy(_decimator_table()).to(device)
+    x, st = t((64, 100), 3000), t((16, 100), 100)
+    buf, starts = t((13, 864)), torch.from_numpy(
+        rng.integers(-900, 900, 13)).to(device)
+    ring, span_start = t((9, 200, 384)), torch.from_numpy(
+        rng.integers(0, 186, 9).astype(np.int32)).to(device)
+    low = t((3, 2448), 400)
+    lr = torch.from_numpy(rng.integers(0, 2448, 3).astype(np.int32)).to(
+        device)
+    h0, y, sm = t((3, 5, 512), 0.01), t((3, 16), 400), torch.full(
+        (3,), 0.7, device=device)
+    kw = dict(shift=384, ds_size=2448, threshold=512 * 150.0 ** 2)
+    seg, al = t((3, 527)), t((3, 16), 0.01)
+    return {
+        "K1": lambda: cuda_biquad.cascade_cuda(coeffs, st, x),
+        "K2": lambda: cuda_span.span_gather_cuda(ring, span_start, 15),
+        "K3": lambda: cuda_matched_filter.nlms_cuda(low, lr, h0, y, sm, **kw),
+        "K4": lambda: cuda_pre_echo.pre_echo_cuda(seg, h0[:, 0].contiguous(),
+                                                  al, y, 4),
+        "K5": lambda: cuda_window.take_windows_cuda(buf, starts, 480),
+        "K6": _k6_call(device),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+def test_graph_replay_matches_eager_launch(device, kernel):
+    """chip_smoke.py times each kernel's device work by replaying captured
+    calls: a captured call must launch the same work. No wrapper syncs
+    with the host, or the capture fails."""
+    fn = _kernel_calls(device)[kernel]
+    eager = _leaves(fn())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _leaves(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(eager) == len(captured)
+    for e, c in zip(eager, captured):
+        assert torch.equal(e, c)

@@ -12,16 +12,22 @@ checked bit for bit against the jitted JAX scan):
     acc = fma(-a1, y1, acc)
     acc = fma(-a2, y2, acc)
 
-Kernel and twin both evaluate fma(a, b, c) as the float rounding of the
-exact double product plus c, so they agree bit for bit on any device.
+The kernel evaluates each fma as one float32 FFMA, XLA:CPU's own single
+rounding. The twin evaluates it as the float rounding of the exact double
+product plus c; on every multiply-add of the port's tables the two agree
+(tests/test_torch_kernel_contracts.py holds ``_fused`` to an exact fma),
+so kernel and twin agree bit for bit.
 
-What bounds it on an H100: the recurrence is serial in time, so each lane
-is one dependent chain of T x K x 4 fused multiply-adds; the card's bandwidth
-(one read and one write of the (T, M) frame) is far from the limit. The
-kernel runs one thread per lane with the sections in registers, so the
-chain never touches memory; at M = 4096 lanes it fills only 64 blocks of
-the 132 SMs; splitting sections across threads would fill more
-(ROADMAP Queue 4).
+What bounds it on an H100: one read and one write of the (T, M) frame and
+the state (16.1 MB at the HPF's T = 480, M = 4096: 0.0048 ms), while the
+recurrence's own chain is only ~2T + 4K dependent multiply-adds (0.002
+ms): y_t depends on y_{t-1} through the last two of a section's four. The
+kernel (``csrc/biquad.cu``) keeps one thread per lane with the sections in
+registers and runs the sections skewed by one sample each, so the K
+updates of a step are independent and each sample waits on 2 FFMAs, not
+on 4K; one-warp blocks spread the lanes over 128 of the 132 SMs at
+M = 4096; the input arrives through shared memory in cp.async chunks,
+double-buffered, so loads overlap the filtering.
 
 Layout: ``x_t`` and ``y_t`` are (T, M) time-major, ``state`` is (4K, M)
 with rows [x1, x2, y1, y2] per section, ``coeffs`` is (K, 5) float32 rows
@@ -44,7 +50,8 @@ launches = 0
 
 
 def _fused(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fma(a, b, c) for float32 values: the product is exact in double."""
+    """fma(a, b, c) for float32 values: the product is exact in double, the
+    sum is rounded to double and then to float."""
     return (b.double() * a + c.double()).float()
 
 
@@ -107,17 +114,14 @@ def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(coeffs, state, x_t)
-    lib = cuda_build.library().lib
-    coeffs = coeffs.contiguous()
-    state = state.contiguous()
-    x_t = x_t.contiguous()
+    coeffs, state, x_t = (t if t.is_contiguous() else t.contiguous()
+                          for t in (coeffs, state, x_t))
     T, M = x_t.shape
     y_t = torch.empty_like(x_t)
     st_out = torch.empty_like(state)
-    stream = torch.cuda.current_stream(x_t.device).cuda_stream
-    err = lib.biquad_cascade_f32(
+    err = cuda_build.library().lib.biquad_cascade_f32(
         x_t.data_ptr(), y_t.data_ptr(), state.data_ptr(), st_out.data_ptr(),
-        coeffs.data_ptr(), coeffs.shape[0], T, M, stream,
+        coeffs.data_ptr(), coeffs.shape[0], T, M, cuda_build.raw_stream(x_t),
     )
     cuda_build.check(err, "biquad_cascade_f32")
     launches += 1
@@ -126,9 +130,9 @@ def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
 
 def cascade(coeffs: torch.Tensor, state: torch.Tensor, x_t: torch.Tensor):
     """(coeffs (K, 5), state (4K, M), x_t (T, M)) -> (state, y_t)."""
-    if x_t.device.type == "cuda":
+    if x_t.is_cuda:
         return cascade_cuda(coeffs, state, x_t)
-    if x_t.device.type == "cpu":
+    if x_t.is_cpu:
         _check(coeffs, state, x_t)
         return cascade_plain(coeffs, state, x_t)
     raise ValueError(f"unsupported device {x_t.device}")

@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -35,8 +37,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, y, state_in, state_out, coeffs, K, T, M, stream
     "biquad_cascade_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # buf, start, out, B, L, W, stream
-    "take_windows_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # buf, start, start_bytes, out, B, L, W, stream
+    "take_windows_f32": (_P, _P, _I, _P, _I, _I, _I, _P),
     # ring, start, out, B, LP, F, W, stream
     "span_gather_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     # lowrate, lr_read, h0, y, smoothing, h, alphas, err, updated, segs,
@@ -135,6 +137,12 @@ def library() -> KernelLibrary:
         fn.restype = ctypes.c_int
     _LIBRARY = KernelLibrary(lib, so_path, seconds, log)
     return _LIBRARY
+
+
+def raw_stream(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, name: str) -> None:

@@ -112,7 +112,7 @@ def nlms_cuda(lowrate, lr_read, h0, y, smoothing, *, shift: int,
     updated = torch.empty((B, N), dtype=torch.bool, device=dev)
     segs = torch.empty((B, N, sub - 1 + taps), dtype=torch.float32,
                        device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = cuda_build.raw_stream(lowrate)
     rc = lib.matched_filter_nlms_f32(
         lowrate.data_ptr(), lr_read.data_ptr(), h0.data_ptr(), y.data_ptr(),
         smoothing.data_ptr(), h.data_ptr(), alphas.data_ptr(),

@@ -73,7 +73,7 @@ def pre_echo_cuda(seg, h0, alphas, y, acc_rate: int):
     B, taps = h0.shape
     out = torch.empty((B, taps // acc_rate), dtype=torch.float32,
                       device=h0.device)
-    stream = torch.cuda.current_stream(h0.device).cuda_stream
+    stream = cuda_build.raw_stream(h0)
     rc = lib.pre_echo_inst_f32(seg.data_ptr(), h0.data_ptr(),
                                alphas.data_ptr(), y.data_ptr(),
                                out.data_ptr(), B, y.shape[1], taps, acc_rate,

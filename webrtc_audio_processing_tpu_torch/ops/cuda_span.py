@@ -50,6 +50,8 @@ def _check(ring, start, width):
         raise ValueError(f"width {width} outside [0, {ring.shape[1]}]")
     if ring.dtype != torch.float32:
         raise TypeError(f"ring must be float32, got {ring.dtype}")
+    if start.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"start must be int32 or int64, got {start.dtype}")
     if start.device != ring.device:
         raise ValueError(f"start is on {start.device}, ring on {ring.device}")
 
@@ -63,7 +65,7 @@ def span_gather_cuda(ring: torch.Tensor, start: torch.Tensor, width: int):
     start = start.to(torch.int32).contiguous()
     B, LP, F = ring.shape
     out = torch.empty((B, width, F), dtype=ring.dtype, device=ring.device)
-    stream = torch.cuda.current_stream(ring.device).cuda_stream
+    stream = cuda_build.raw_stream(ring)
     err = lib.span_gather_f32(ring.data_ptr(), start.data_ptr(),
                               out.data_ptr(), B, LP, F, width, stream)
     cuda_build.check(err, "span_gather_f32")

@@ -265,7 +265,7 @@ def pair_cuda(config: EchoCanceller3Config, st: PairState, sf_chain, offsets,
         imp=torch.empty((B, nb, C, P * BLOCK), **f32),
         size=torch.empty((B, nb), dtype=torch.int32, device=dev))
     fcfg, icfg = _config_args(config, P, Pc)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = cuda_build.raw_stream(st.H)
     rc = lib.subtractor_pair_f32(
         *(t.data_ptr() for t in (*inputs, *new, *out)), B, C, P, Pc, R,
         sf_chain.shape[1], sf_chain.shape[2], nb, fcfg, icfg, stream)
