@@ -10,18 +10,19 @@ exits non-zero without a result line:
    csrc`` with nvcc (sm_90a, one nvcc per source, all at once) and loaded
    with ctypes.
 3. kernels: K1 (biquad cascade, at the HPF's, the AEC3 decimators' and the
-   PostFilter's shapes), K2 (ring span read), K3 (matched-filter NLMS
-   bank), K4 (pre-echo errors), K5 (window read) and K6 (the subtractor
-   pair kernel, at 48 kHz stereo for 2 and 3 blocks with and without
-   events, and at 16 kHz mono; both geometries also with render spectra
-   below the gains' noise gate) against their plain PyTorch twins on the
-   card at the main paths' shapes. Each row gives the call time (CUDA
+   PostFilter's shapes), K2 (ring span read), K3 (matched-filter NLMS bank;
+   the specialised form at the path's taps 512, sub 16, the general form at
+   taps 256, sub 8), K4 (pre-echo errors; taps 512, acc_rate 4, and the
+   general form at taps 256, acc_rate 8), K5 (window read) and K6 (the
+   subtractor pair kernel, at 48 kHz stereo for 2 and 3 blocks with and
+   without events, and at 16 kHz mono; both geometries also with render
+   spectra below the gains' noise gate) against their plain PyTorch twins on
+   the card at the main paths' shapes. Each row gives the call time (CUDA
    events around back-to-back calls from Python: what a caller pays, host
-   work included), the device time (the calls captured in a CUDA graph
-   and replayed: the kernel alone), the device kernels one call runs, the
-   twin's call time and, for K2 and K5, the same two times of the one
-   PyTorch call that computes the same function (``torch.gather`` on a
-   prebuilt index).
+   work included), the device time (the calls captured in a CUDA graph and
+   replayed: the kernel alone), the device kernels one call runs, the twin's
+   call time and, for K2 and K5, the same two times of the one PyTorch call
+   that computes the same function (``torch.gather`` on a prebuilt index).
 4. Three AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
    and AGC2 (the bench's configurations, bench.py:30-78), each 300 frames
    (3 s) of an echo scene with the last 100 frames timed:
@@ -139,9 +140,9 @@ SLICE_TIMED = 30
 SLICE_CHECK = (0, 683, 1366, 2047)
 
 # The card's peaks for the bounds: HBM bandwidth and float32 rate outside
-# the tensor cores (NVIDIA's H100 SXM data sheet). K1's chain is bounded by
-# its dependent-instruction latency: 4 cycles per dependent operation at
-# the 1,980 MHz boost clock.
+# the tensor cores (NVIDIA's H100 SXM data sheet). A dependent chain (K1's
+# recurrence, K3's and K4's steps) is bounded by its dependent-instruction
+# latency: 4 cycles per dependent operation at the 1,980 MHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 DEP_OP_S = 4 / 1.98e9
@@ -174,10 +175,9 @@ def build_phase():
 
     t0 = time.perf_counter()
     lib = cuda_build.library()
-    regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
-          ptxas=regs)
+          ptxas=cuda_build.ptxas_lines(lib.log))
 
 
 def _event_ms(fn, n, rounds=5):
@@ -283,13 +283,93 @@ def _k1_case(dev, rng, coeffs_np, T, M):
     )
 
 
+def _k3_case(dev, rng, taps, sub):
+    """K3 against its twin at (taps, sub) on the matched filter's ring,
+    timed; returns the row's fields and the inputs K4 reuses."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_matched_filter
+
+    f32, N, DS = np.float32, 5, 2448
+    low = torch.from_numpy(
+        rng.standard_normal((B, DS)).astype(f32) * 400).to(dev)
+    lr = torch.from_numpy(rng.integers(0, DS, B).astype(np.int32)).to(dev)
+    h0 = torch.from_numpy(
+        rng.standard_normal((B, N, taps)).astype(f32) * 0.01).to(dev)
+    y = torch.from_numpy(rng.standard_normal((B, sub)).astype(f32) * 400).to(
+        dev)
+    sm = torch.full((B,), 0.7, device=dev)
+    kw = dict(shift=384, ds_size=DS, threshold=taps * 150.0 ** 2)
+    got = cuda_matched_filter.nlms_cuda(low, lr, h0, y, sm, **kw)
+    want = cuda_matched_filter.nlms_plain(low, lr, h0, y, sm, **kw)
+    torch.cuda.synchronize()
+    rel = max(_max_rel(g, w) for g, w in zip(got[:3], want[:3]))
+    if rel > 2e-5 or not (torch.equal(got[3], want[3])
+                          and torch.equal(got[4], want[4])):
+        raise AssertionError(f"K3 differs from its twin at taps={taps}, "
+                             f"sub={sub}: max-relative {rel}")
+    # Bytes: the ring entries the N segments of a stream touch (starts
+    # shift apart, so at most (N - 1) * shift + seg_len of the DS), lr_read,
+    # y and smoothing read, the filters read and written, the segments,
+    # alphas and err written (float32 and int32), updated (1 byte). The
+    # chain: each of the sub steps waits on one multiply and log2(taps)
+    # adds of its dot products, e, the max, the division and the gate's
+    # select, and the update's multiply-add.
+    seg_len = sub - 1 + taps
+    ring_read = min(DS, (N - 1) * kw["shift"] + seg_len)
+    n_bytes = 4 * (B * ring_read + B * (sub + 2) + 2 * B * N * taps
+                   + B * N * (seg_len + sub + 1)) + B * N
+    bound, by = _bound_ms(
+        n_bytes, n_ops=B * N * sub * taps * 6,
+        chain_s=sub * (1 + (taps - 1).bit_length() + 4 + 1) * DEP_OP_S)
+    return dict(
+        max_abs_err=max(float((g - w).abs().max())
+                        for g, w in zip(got[:3], want[:3])),
+        max_rel_err=rel,
+        **_times(lambda: cuda_matched_filter.nlms_cuda(
+            low, lr, h0, y, sm, **kw), 50, 20),
+        plain_ms=_event_ms(lambda: cuda_matched_filter.nlms_plain(
+            low, lr, h0, y, sm, **kw), 5),
+        bound_ms=bound, bound_by=by,
+        shape=f"B={B} N={N} taps={taps} sub={sub}"), (low, h0, y, got)
+
+
+def _k4_case(dev, seg, h0, al, y, rate):
+    """K4 against its twin on the given inputs, timed."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_pre_echo
+
+    taps, sub = h0.shape[1], y.shape[1]
+    pe_k = cuda_pre_echo.pre_echo_cuda(seg, h0, al, y, rate)
+    pe_p = cuda_pre_echo.pre_echo_plain(seg, h0, al, y, rate)
+    torch.cuda.synchronize()
+    norm = float(((pe_k - pe_p) / torch.clamp(pe_p.abs(), min=1.0)).abs()
+                 .max())
+    if norm > 2e-4:
+        raise AssertionError(f"K4 differs from its twin at taps={taps}, "
+                             f"acc_rate={rate}: {norm}")
+    # Bytes: seg, h0, y and the sub - 1 alphas that move the filter before
+    # a later step (the last one moves it after every step is scored) read,
+    # the errors written. The chain: the sub-step wex chain (one
+    # multiply-add per step), then the last step's add and product, its
+    # chunk sums and prefix (log2(taps) adds), d and the multiply-add into
+    # acc.
+    bound, by = _bound_ms(
+        B * (sub - 1 + taps + taps + 2 * sub - 1 + taps // rate) * 4,
+        n_ops=B * sub * taps * 5,
+        chain_s=(sub + 2 + (taps - 1).bit_length() + 2) * DEP_OP_S)
+    return dict(
+        max_abs_err=float((pe_k - pe_p).abs().max()), max_norm_err=norm,
+        **_times(lambda: cuda_pre_echo.pre_echo_cuda(seg, h0, al, y, rate),
+                 200, 50),
+        plain_ms=_event_ms(lambda: cuda_pre_echo.pre_echo_plain(
+            seg, h0, al, y, rate), 10),
+        bound_ms=bound, bound_by=by,
+        shape=f"B={B} taps={taps} acc_rate={rate} sub={sub}")
+
+
 def kernels_phase(dev):
     from webrtc_audio_processing_tpu_torch.models import post_filter
     from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
     from webrtc_audio_processing_tpu_torch.ops import (
         biquad,
-        cuda_matched_filter,
-        cuda_pre_echo,
         cuda_span,
         cuda_window,
     )
@@ -350,67 +430,34 @@ def kernels_phase(dev):
         library_note="torch.gather with a prebuilt index",
         other_shapes={"blocks": k2_case(15, 384)}, **k2))
 
-    # K3 at the matched filter's shapes: 5 filters of 512 taps, DS = 2448.
-    f32 = np.float32
-    low = torch.from_numpy(
-        rng.standard_normal((B, 2448)).astype(f32) * 400).to(dev)
-    lr = torch.from_numpy(rng.integers(0, 2448, B).astype(np.int32)).to(dev)
-    h0 = torch.from_numpy(
-        rng.standard_normal((B, 5, 512)).astype(f32) * 0.01).to(dev)
-    y = torch.from_numpy(rng.standard_normal((B, 16)).astype(f32) * 400).to(
-        dev)
-    sm = torch.full((B,), 0.7, device=dev)
-    kw = dict(shift=384, ds_size=2448, threshold=512 * 150.0 ** 2)
-    got = cuda_matched_filter.nlms_cuda(low, lr, h0, y, sm, **kw)
-    want = cuda_matched_filter.nlms_plain(low, lr, h0, y, sm, **kw)
-    torch.cuda.synchronize()
-    rel = max(_max_rel(g, w) for g, w in zip(got[:3], want[:3]))
-    if rel > 2e-5 or not (torch.equal(got[3], want[3])
-                          and torch.equal(got[4], want[4])):
-        raise AssertionError(f"K3 differs from its twin: max-relative {rel}")
-    n_bytes = (B * 2448 + 2 * B * 5 * 512 + B * 5 * 527 + B * 5 * 18
-               + B * 17) * 4
-    bound, by = _bound_ms(n_bytes, n_ops=B * 5 * 16 * 512 * 6)
+    # K3 at the matched filter's shapes (5 filters of 512 taps, DS = 2448,
+    # sub 16: the specialised form), and the runtime-sub form beside it.
+    k3, (low, h0, y, got) = _k3_case(dev, rng, 512, 16)
     rows.append(dict(
         name="matched_filter_nlms", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/matched_filter.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_mf.py:31",
-        max_abs_err=max(float((g - w).abs().max())
-                        for g, w in zip(got[:3], want[:3])),
-        max_rel_err=rel,
-        **_times(lambda: cuda_matched_filter.nlms_cuda(
-            low, lr, h0, y, sm, **kw), 50, 20),
-        plain_ms=_event_ms(lambda: cuda_matched_filter.nlms_plain(
-            low, lr, h0, y, sm, **kw), 5),
         library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call runs a per-sample NLMS",
-        bound_ms=bound, bound_by=by, shape=f"B={B} N=5 taps=512 sub=16"))
+        other_shapes={"taps256_sub8": _k3_case(
+            dev, np.random.default_rng(SEED + 100), 256, 8)[0]}, **k3))
 
-    # K4 at the winner filter's shapes.
-    seg = got[4][:, 0].contiguous()
-    h0w = h0[:, 0].contiguous()
-    al = (got[1][:, 0] * 1.0).contiguous()
-    pe_k = cuda_pre_echo.pre_echo_cuda(seg, h0w, al, y, 4)
-    pe_p = cuda_pre_echo.pre_echo_plain(seg, h0w, al, y, 4)
-    torch.cuda.synchronize()
-    norm = float(((pe_k - pe_p) / torch.clamp(pe_p.abs(), min=1.0)).abs()
-                 .max())
-    if norm > 2e-4:
-        raise AssertionError(f"K4 differs from its twin: {norm}")
-    bound, by = _bound_ms(B * (527 + 512 + 32 + 128) * 4,
-                          n_ops=B * 16 * 512 * 5)
+    # K4 at the winner filter's shapes (the specialised form), and the
+    # general form beside it.
+    k4 = _k4_case(dev, got[4][:, 0].contiguous(), h0[:, 0].contiguous(),
+                  (got[1][:, 0] * 1.0).contiguous(), y, 4)
+    other = np.random.default_rng(SEED + 101)
+    k4_256 = _k4_case(dev, *(torch.from_numpy(
+        (other.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+        for shape, scale in (((B, 271), 400.0), ((B, 256), 0.01),
+                             ((B, 16), 1e-6), ((B, 16), 400.0))), 8)
     rows.append(dict(
         name="pre_echo_inst", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/pre_echo.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_pre_echo.py:59",
-        max_abs_err=float((pe_k - pe_p).abs().max()), max_norm_err=norm,
-        **_times(lambda: cuda_pre_echo.pre_echo_cuda(seg, h0w, al, y, 4),
-                 200, 50),
-        plain_ms=_event_ms(lambda: cuda_pre_echo.pre_echo_plain(
-            seg, h0w, al, y, 4), 10),
         library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call computes the chunked errors",
-        bound_ms=bound, bound_by=by, shape=f"B={B} taps=512 sub=16"))
+        other_shapes={"taps256_rate8": k4_256}, **k4))
 
     # K5 at the RNN-VAD's shapes: B = 2048, L = 864, W = 480, with the
     # int64 starts the pitch search gives it (rnn_vad/features.py).

@@ -2,7 +2,10 @@
 ``apm.process_stream_pair`` at 48 kHz stereo with HPF, multichannel AEC3,
 NS and AGC2 (the bench's configuration, bench.py:53-78), B = 2 streams of
 the echo scene for 20 frames. One module-scoped run of each package serves
-every test; the JAX step compiles once per frame parity."""
+every test; the JAX step compiles once per frame parity, the two parities
+side by side."""
+
+import concurrent.futures
 
 import jax
 import jax.numpy as jnp
@@ -39,11 +42,18 @@ def runs():
     """Both packages on the same inputs from the same initial state."""
     jgeo, geo = geometries()
     renders, captures = echo_scene(N_FRAMES, B, seed=3)
-    steps = [jax.jit(jax.vmap(
-        lambda s, c, r, n0, p=p: j_apm.process_stream_pair(
-            jgeo, s, c, r, p, n0=n0), in_axes=(0, 0, 0, None)))
-        for p in (0, 1)]
     js = batched(j_apm.init_state(jgeo), B)
+
+    def compiled(parity):
+        step = jax.jit(jax.vmap(
+            lambda s, c, r, n0: j_apm.process_stream_pair(
+                jgeo, s, c, r, parity, n0=n0), in_axes=(0, 0, 0, None)))
+        return step.lower(js, captures[0], renders[0], jnp.int32(0)).compile()
+
+    # The two frame parities compile side by side (each is minutes of
+    # single-threaded XLA work on the CPU).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        steps = list(pool.map(compiled, (0, 1)))
     state = apm.state_from_jax(js, geo)
     launches = [m.launches for m in (cuda_biquad, cuda_span,
                                      cuda_matched_filter, cuda_pre_echo,

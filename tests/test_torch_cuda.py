@@ -175,42 +175,95 @@ def _max_rel(a, b):
     return float((a - b.double()).abs().max() / (a.abs().max() + 1e-30))
 
 
-@pytest.mark.parametrize("B", [3, 2048])
-def test_k3_matches_twin(device, B):
-    """Max-relative 2e-5 on h, alphas and err; updated and segs exact
-    (tests/test_pallas_mf_kernel.py's bar)."""
-    rng = np.random.default_rng(B)
+def _k3_inputs(B, taps, sub, seed):
+    """Inputs of K3 at the matched filter's ring (DS = 2448, 5 filters 384
+    apart, tests/test_pallas_mf_kernel.py's scales), every x^2 far from
+    the threshold taps * 150^2 (x^2 ~ taps * 400^2)."""
+    rng = np.random.default_rng(seed)
     f = np.float32
-    low = torch.from_numpy(rng.standard_normal((B, 2448)).astype(f) * 400)
-    lr = torch.from_numpy(rng.integers(0, 2448, B).astype(np.int32))
-    h0 = torch.from_numpy(rng.standard_normal((B, 5, 512)).astype(f) * 0.01)
-    y = torch.from_numpy(rng.standard_normal((B, 16)).astype(f) * 400)
-    y[0, 3] = 32001.0
-    sm = torch.full((B,), 0.7)
-    args = [t.to(device) for t in (low, lr, h0, y, sm)]
-    kw = dict(shift=384, ds_size=2448, threshold=512 * 150.0 ** 2)
+    low = rng.standard_normal((B, 2448)).astype(f) * 400
+    lr = rng.integers(0, 2448, B).astype(np.int32)
+    h0 = rng.standard_normal((B, 5, taps)).astype(f) * 0.01
+    y = rng.standard_normal((B, sub)).astype(f) * 400
+    sm = np.full((B,), 0.7, f)
+    return low, lr, h0, y, sm
+
+
+def _k3_check(device, low, lr, h0, y, sm):
+    """Max-relative 2e-5 on h, alphas and err; updated and segs exact
+    (tests/test_pallas_mf_kernel.py's bar). Returns the kernel's output."""
+    taps = h0.shape[-1]
+    args = [torch.from_numpy(a).to(device) for a in (low, lr, h0, y, sm)]
+    kw = dict(shift=384, ds_size=2448, threshold=taps * 150.0 ** 2)
     got = cuda_matched_filter.nlms(*args, **kw)
     want = cuda_matched_filter.nlms_plain(*args, **kw)
     torch.cuda.synchronize()
     for name, g, w in zip(("h", "alphas", "err"), got[:3], want[:3]):
         assert _max_rel(w, g) <= 2e-5, name
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    return got
 
 
 @pytest.mark.parametrize("B", [3, 2048])
-def test_k4_matches_twin(device, B):
+@pytest.mark.parametrize("taps,sub", [(512, 16), (384, 16), (256, 8),
+                                      (128, 1)])
+def test_k3_matches_twin(device, taps, sub, B):
+    """The specialised form (taps 512, sub 16) and the runtime-sub form."""
+    _k3_check(device, *_k3_inputs(B, taps, sub, seed=B + taps + sub))
+
+
+@pytest.mark.parametrize("taps,sub", [(512, 16), (256, 8)])
+def test_k3_segment_wraps_the_ring_end(device, taps, sub):
+    """Read indices whose filters' segments run past DS and wrap to 0."""
+    low, lr, h0, y, sm = _k3_inputs(6, taps, sub, seed=11)
+    seg_len = sub - 1 + taps
+    lr[:] = [2448 - 1, 2448 - seg_len // 2, 2448 - seg_len + 1,
+             2448 - 384 - 5, 2448 - 4 * 384 - 1, 0]
+    got = _k3_check(device, low, lr, h0, y, sm)
+    segs = got[4].cpu().numpy()
+    assert np.array_equal(segs[0, 0, 1:4], low[0, :3])  # wrapped
+
+
+def test_k3_saturated_capture_sample_closes_its_step(device):
+    """|y_i| >= 32000 gates step i shut on every filter: its alphas are 0."""
+    low, lr, h0, y, sm = _k3_inputs(5, 512, 16, seed=12)
+    y[1, 3], y[2, 0], y[4, 15] = 32000.0, -32001.0, 40000.0
+    got = _k3_check(device, low, lr, h0, y, sm)
+    alphas = got[1].cpu()
+    assert (alphas[1, :, 3] == 0).all() and (alphas[2, :, 0] == 0).all()
+    assert (alphas[4, :, 15] == 0).all() and (alphas[0] != 0).all()
+
+
+def test_k3_stream_below_the_threshold_is_not_updated(device):
+    """A stream whose render is 100x quieter has x^2 below the threshold on
+    every window: no filter of it updates and its alphas are 0."""
+    low, lr, h0, y, sm = _k3_inputs(4, 512, 16, seed=13)
+    low[2] *= 0.01
+    got = _k3_check(device, low, lr, h0, y, sm)
+    updated, alphas = got[3].cpu(), got[1].cpu()
+    assert not updated[2].any() and (alphas[2] == 0).all()
+    assert updated[[0, 1, 3]].all()
+    assert torch.equal(got[0][2].cpu(), torch.from_numpy(h0[2]))
+
+
+@pytest.mark.parametrize("B", [3, 2047, 2048])
+@pytest.mark.parametrize("taps,acc_rate", [(512, 4), (256, 8), (1024, 1)])
+def test_k4_matches_twin(device, taps, acc_rate, B):
     """Within 2e-4 after dividing by max(|out|, 1)
-    (tests/test_pallas_pre_echo.py's bar)."""
-    rng = np.random.default_rng(B + 1)
+    (tests/test_pallas_pre_echo.py's bar): the specialised form (taps 512,
+    acc_rate 4; B = 2047 leaves the last block of four streams ragged) and
+    the general form."""
+    rng = np.random.default_rng(B + taps + acc_rate)
     f = np.float32
-    seg = torch.from_numpy(rng.standard_normal((B, 527)).astype(f))
-    h0 = torch.from_numpy((rng.standard_normal((B, 512)) * 0.1).astype(f))
+    seg = torch.from_numpy(rng.standard_normal((B, taps + 15)).astype(f))
+    h0 = torch.from_numpy((rng.standard_normal((B, taps)) * 0.1).astype(f))
     al = torch.from_numpy((rng.standard_normal((B, 16)) * 0.01).astype(f))
     y = torch.from_numpy(rng.standard_normal((B, 16)).astype(f))
     args = [t.to(device) for t in (seg, h0, al, y)]
-    got = cuda_pre_echo.pre_echo_inst(*args, 4)
-    want = cuda_pre_echo.pre_echo_plain(*args, 4)
+    got = cuda_pre_echo.pre_echo_inst(*args, acc_rate)
+    want = cuda_pre_echo.pre_echo_plain(*args, acc_rate)
     torch.cuda.synchronize()
+    assert got.shape == (B, taps // acc_rate)
     scale = torch.clamp(want.abs(), min=1.0)
     assert float(((got - want) / scale).abs().max()) <= 2e-4
 
@@ -328,18 +381,24 @@ def _kernel_calls(device):
         (3,), 0.7, device=device)
     kw = dict(shift=384, ds_size=2448, threshold=512 * 150.0 ** 2)
     seg, al = t((3, 527)), t((3, 16), 0.01)
+    low8, h8 = t((3, 2448), 400), t((3, 5, 256), 0.01)
+    seg8, h4 = t((3, 271)), t((3, 256), 0.1)
     return {
         "K1": lambda: cuda_biquad.cascade_cuda(coeffs, st, x),
         "K2": lambda: cuda_span.span_gather_cuda(ring, span_start, 15),
         "K3": lambda: cuda_matched_filter.nlms_cuda(low, lr, h0, y, sm, **kw),
         "K4": lambda: cuda_pre_echo.pre_echo_cuda(seg, h0[:, 0].contiguous(),
                                                   al, y, 4),
+        "K3_general": lambda: cuda_matched_filter.nlms_cuda(
+            low8, lr, h8, y[:, :8].contiguous(), sm, **kw),
+        "K4_general": lambda: cuda_pre_echo.pre_echo_cuda(seg8, h4, al, y, 8),
         "K5": lambda: cuda_window.take_windows_cuda(buf, starts, 480),
         "K6": _k6_call(device),
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K3_general", "K4",
+                                    "K4_general", "K5", "K6"])
 def test_graph_replay_matches_eager_launch(device, kernel):
     """chip_smoke.py times each kernel's device work by replaying captured
     calls: a captured call must launch the same work. No wrapper syncs

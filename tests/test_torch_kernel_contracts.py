@@ -10,20 +10,37 @@
 - K5's twin gives ``lax.dynamic_slice``'s windows for int32 and int64
   starts alike, negative and past the end, at every start residue mod 4
   (the kernel's 16-byte lines).
-- The K2 and K5 wrappers refuse a start that is not an integer tensor and
-  a buffer that is not float32, on the CPU path and before the launch.
+- K3's and K4's kernels sum in their own order (K3: an FMA chain over a
+  lane's taps, then a pairwise tree over the 32 lanes; K4: FMA chains
+  over each chunk, a running prefix in the lane, then a Hillis-Steele scan
+  of the lane totals). Numpy models of those orders are held to the JAX
+  oracles (``pallas_mf._nlms_scan``, ``pallas_pre_echo.pre_echo_inst_xla``)
+  at the kernels' bars, on inputs with near-converged filters and x^2
+  near the gate's threshold, so the kernels' order, not only the twins',
+  stays inside them.
+- ``cuda_build.ptxas_lines`` keeps each kernel's entry line with its
+  registers and spills (``chip_smoke.py``'s build phase prints them).
+- The K2, K3 and K5 wrappers refuse an index that is not of their integer
+  type and data that is not float32, on the CPU path and before the
+  launch.
 """
+
+import functools
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from webrtc_audio_processing_tpu.ops import pallas_mf, pallas_pre_echo
+
 from webrtc_audio_processing_tpu_torch.models import post_filter
 from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
 from webrtc_audio_processing_tpu_torch.ops import (
     biquad,
     cuda_biquad,
+    cuda_build,
+    cuda_matched_filter,
     cuda_span,
     cuda_window,
 )
@@ -141,3 +158,222 @@ def test_window_and_span_wrappers_refuse_other_dtypes(take):
             k5(buf.to(dtype), ints, 480)
         with pytest.raises(TypeError, match="ring"):
             k2(ring.to(dtype), ints, 3)
+
+
+@pytest.mark.parametrize("take", ["cpu", "cuda_wrapper"])
+def test_matched_filter_wrapper_refuses_other_dtypes(take):
+    """K3 reads its read index as int32, as the render buffer keeps it
+    (``render_buffer.lr_read_index``): any other index type, and data that
+    is not float32, raise before the twin or the kernel library."""
+    k3 = {"cpu": cuda_matched_filter.nlms,
+          "cuda_wrapper": cuda_matched_filter.nlms_cuda}[take]
+    kw = dict(shift=384, ds_size=2448, threshold=1.0)
+    low, h0, y, sm = (torch.zeros(2, 2448), torch.zeros(2, 5, 512),
+                      torch.zeros(2, 16), torch.zeros(2))
+    for lr in (torch.zeros(2, dtype=torch.int64), torch.zeros(2),
+               torch.zeros(2, dtype=torch.bool)):
+        with pytest.raises(TypeError, match="lr_read"):
+            k3(low, lr, h0, y, sm, **kw)
+    lr = torch.zeros(2, dtype=torch.int32)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="lowrate"):
+            k3(low.to(dtype), lr, h0, y, sm, **kw)
+        with pytest.raises(TypeError, match="h0"):
+            k3(low, lr, h0.to(dtype), y, sm, **kw)
+
+
+def _tree(v):
+    """K3's butterfly: the pairwise sum over the last axis (32 lanes) at
+    distances 16, 8, 4, 2, 1, in float32."""
+    for w in (16, 8, 4, 2, 1):
+        v = v[..., :w] + v[..., w:2 * w]
+    return v[..., 0]
+
+
+def k3_order(low, lr, h0, y, sm, *, shift, ds_size, threshold):
+    """K3's arithmetic in the kernel's order (``csrc/matched_filter.cu``):
+    lane l owns taps taps/32 * l + k; per step an FMA chain over the
+    lane's taps for h . x and x . x, the tree over lanes, then e, the gate,
+    a and the FMA updates of h and of the error sum."""
+    B, N, taps = h0.shape
+    sub = y.shape[1]
+    tpl = taps // 32
+    seg_len = sub - 1 + taps
+    starts = (lr.astype(np.int64)[:, None] + np.arange(N) * shift) % ds_size
+    idx = (starts[..., None] + np.arange(seg_len)) % ds_size
+    segs = low[np.arange(B)[:, None, None], idx]
+    h = h0.reshape(B, N, 32, tpl).copy()
+    err = np.zeros((B, N), np.float32)
+    alphas = np.zeros((B, N, sub), np.float32)
+    any_gate = np.zeros((B, N), bool)
+    thr = np.float32(threshold)
+    for i in range(sub):
+        x = segs[..., sub - 1 - i: sub - 1 - i + taps].reshape(B, N, 32, tpl)
+        hx = np.zeros((B, N, 32), np.float32)
+        xx = np.zeros((B, N, 32), np.float32)
+        for k in range(tpl):
+            hx = exact_fma(h[..., k], x[..., k], hx)
+            xx = exact_fma(x[..., k], x[..., k], xx)
+        s, x2 = _tree(hx), _tree(xx)
+        yi = y[:, i, None]
+        gate = (x2 > thr) & (yi < 32000) & (yi > -32000)
+        e = yi - s
+        a = np.where(gate, (sm[:, None] * e) / np.maximum(x2, np.float32(
+            1e-30)), np.float32(0)).astype(np.float32)
+        h = exact_fma(a[..., None, None], x, h)
+        err = exact_fma(e, e, err)
+        alphas[..., i] = a
+        any_gate |= gate
+    return h.reshape(B, N, taps), alphas, err, any_gate, segs
+
+
+def k4_order(seg, h0, al, y, acc_rate):
+    """K4's arithmetic in the kernel's order (``csrc/pre_echo.cu``): lane l
+    owns taps taps/32 * l + k; per step an FMA chain over each chunk's
+    (h0 + wex) x, the running prefix over the lane's chunks, the scan of
+    the lane totals, d = y - (earlier lanes + prefix), acc += d^2 and
+    wex += a x, each as one FMA."""
+    B, taps = h0.shape
+    sub = y.shape[1]
+    cpl = taps // acc_rate // 32
+    h = h0.reshape(B, 32, cpl, acc_rate)
+    wex = np.zeros_like(h)
+    acc = np.zeros((B, 32, cpl), np.float32)
+    for i in range(sub):
+        x = seg[:, sub - 1 - i: sub - 1 - i + taps].reshape(h.shape)
+        hw = h + wex
+        part = np.zeros((B, 32, cpl), np.float32)
+        run = np.zeros((B, 32), np.float32)
+        for m in range(cpl):
+            c = np.zeros((B, 32), np.float32)
+            for k in range(acc_rate):
+                c = exact_fma(hw[..., m, k], x[..., m, k], c)
+            run = run + c
+            part[..., m] = run
+        incl = run
+        for off in (1, 2, 4, 8, 16):
+            incl = np.concatenate([incl[:, :off], incl[:, off:]
+                                   + incl[:, :-off]], axis=1)
+        before = np.concatenate([np.zeros((B, 1), np.float32),
+                                 incl[:, :-1]], axis=1)
+        d = y[:, i, None, None] - (before[..., None] + part)
+        acc = exact_fma(d, d, acc)
+        wex = exact_fma(al[:, i, None, None, None], x, wex)
+    return acc.reshape(B, taps // acc_rate)
+
+
+def _max_rel(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / (np.abs(want).max() + 1e-30))
+
+
+def _k3_order_inputs(taps, sub, seed):
+    """Four streams of the matched filter's ring (DS = 2448, 5 filters 384
+    apart). Filter 2 of every stream is near convergence: y is its windows
+    through a filter h* (plus -60 dB noise) and h0 = h* + 1e-3 h*, so
+    e << s there. The threshold sits 1e-4 below the median window's x^2
+    (in double), which opens about half the steps; no x^2 lies within
+    2e-5 of it, far beyond float rounding of the sums (~1e-6)."""
+    rng = np.random.default_rng(seed)
+    B, N, shift, ds = 4, 5, 384, 2448
+    low = (rng.standard_normal((B, ds)) * 400).astype(np.float32)
+    low[1] *= 1.05
+    lr = rng.integers(0, ds, B).astype(np.int32)
+    h0 = (rng.standard_normal((B, N, taps)) * 0.01).astype(np.float32)
+    seg_len = sub - 1 + taps
+    starts = (lr[:, None].astype(np.int64) + np.arange(N) * shift) % ds
+    segs = low[np.arange(B)[:, None, None],
+               (starts[..., None] + np.arange(seg_len)) % ds].astype(
+                   np.float64)
+    wins = np.stack([segs[..., sub - 1 - i: sub - 1 - i + taps]
+                     for i in range(sub)], axis=2)  # (B, N, sub, taps)
+    h_star = rng.standard_normal((B, taps)) * 0.05
+    y = np.einsum("bst,bt->bs", wins[:, 2], h_star)
+    y = (y * (1 + 1e-3 * rng.standard_normal(y.shape))).astype(np.float32)
+    h0[:, 2] = (h_star * (1 + 1e-3 * rng.standard_normal(h_star.shape))
+                ).astype(np.float32)
+    x2 = np.einsum("bnst,bnst->bns", wins, wins)
+    thr = float(np.median(x2)) * (1 - 1e-4)
+    assert np.abs(x2 / thr - 1).min() > 2e-5
+    sm = np.full((B,), 0.7, np.float32)
+    return (low, lr, h0, y, sm), thr
+
+
+@pytest.mark.parametrize("taps,sub", [(512, 16), (256, 8)])
+def test_k3_kernel_order_matches_nlms_scan(taps, sub):
+    """The kernel's order against ``_nlms_scan`` (jitted, XLA:CPU) within
+    2e-5 max-relative on h, alphas and err, ``updated`` and ``segs``
+    exact; near-converged filters and gates near the threshold included."""
+    args, thr = _k3_order_inputs(taps, sub, seed=taps + sub)
+    kw = dict(shift=384, ds_size=2448, threshold=thr)
+    want = jax.jit(jax.vmap(functools.partial(
+        pallas_mf._nlms_scan, n_filters=5, sub=sub, taps=taps, **kw)))(
+            *args)
+    got = k3_order(*args, **kw)
+    for name, g, w in zip(("h", "alphas", "err"), got[:3], want[:3]):
+        assert _max_rel(g, w) <= 2e-5, name
+    upd = np.asarray(want[3])
+    np.testing.assert_array_equal(got[3], upd)
+    np.testing.assert_array_equal(got[4], np.asarray(want[4]))
+    # The cases are there: open and shut steps, a converged filter.
+    alphas, e_conv = np.asarray(want[1]), np.asarray(want[2])[:, 2]
+    assert (alphas == 0).any() and (alphas != 0).any()
+    assert e_conv.max() < 1e-3 * np.asarray(want[2]).max()
+
+
+@pytest.mark.parametrize("taps,acc_rate", [(512, 4), (256, 8), (1024, 1)])
+def test_k4_kernel_order_matches_pre_echo_inst_xla(taps, acc_rate):
+    """The kernel's order against ``pre_echo_inst_xla`` (jitted, XLA:CPU)
+    within 2e-4 after dividing by max(|out|, 1), with a near-converged
+    filter: y_i is the full h_i . x_i plus -40 dB noise, so the last
+    chunks' errors are small against the sums. (The bar is absolute where
+    |out| < 1: at -60 dB and taps 1024 the twin's own order comes within
+    1.5e-4 of it.)"""
+    rng = np.random.default_rng(taps + acc_rate)
+    B, sub = 4, 16
+    seg = (rng.standard_normal((B, sub - 1 + taps)) * 100).astype(np.float32)
+    h0 = (rng.standard_normal((B, taps)) * 0.1).astype(np.float32)
+    al = (rng.standard_normal((B, sub)) * 1e-5).astype(np.float32)
+    s64 = seg.astype(np.float64)
+    wex = np.zeros((B, taps))
+    y = np.zeros((B, sub))
+    for i in range(sub):
+        x = s64[:, sub - 1 - i: sub - 1 - i + taps]
+        y[:, i] = ((h0 + wex) * x).sum(-1)
+        wex += al[:, i, None] * x
+    y = (y * (1 + 1e-2 * rng.standard_normal(y.shape))).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(functools.partial(
+        pallas_pre_echo.pre_echo_inst_xla, sub=sub, taps=taps,
+        acc_rate=acc_rate)))(seg, h0, al, y))
+    got = k4_order(seg, h0, al, y, acc_rate)
+    scale = np.maximum(np.abs(want), 1.0)
+    assert np.abs((got - want) / scale).max() <= 2e-4
+    assert want[:, -1].max() < 1e-3 * want.max()  # converged at the end
+
+
+def test_ptxas_lines_name_each_kernel():
+    """The ``nvcc -Xptxas -v`` lines kept for the build report: each
+    kernel's entry line, then its spills and registers, nothing else."""
+    ns = "_ZN50_GLOBAL__N__88497ba4_17_matched_filter_cu_c942890a"
+    k3 = ns + "11nlms_kernelILi16ELi16EEEvPKfPKiS2_S2_S2_PfS5_S5_PhS5_iiiifi"
+    k4 = ("_ZN44_GLOBAL__N__1be17e9e_11_pre_echo_cu_a8fa75bb23pre_echo_"
+          "general_kernelEPKfS1_S1_S1_Pfiii")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k3}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 0 barriers",
+        f"ptxas info    : Compiling entry function '{k4}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k4}",
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 60 registers, used 0 barriers"])
+    assert cuda_build.ptxas_lines(log) == [
+        f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 0 barriers",
+        f"ptxas info    : Compiling entry function '{k4}' for 'sm_90a'",
+        "8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 60 registers, used 0 barriers"]
+    assert cuda_build.ptxas_lines("") == []

@@ -7,8 +7,9 @@ disassembles it with ``cuobjdump -sass`` and prints one JSON line per
 kernel function whose name contains ``--match`` (all of them by default):
 its SASS instruction count, its FP64 instructions (``DADD``, ``DMUL``,
 ``DFMA``, ``DSETP``, conversions to or from F64) by opcode, and the
-``ptxas -v`` lines of the build (registers, spills), when this process
-built the library. ``--dump`` writes the whole disassembly to a file.
+``ptxas -v`` lines of the build (each kernel's entry, registers and
+spills), when this process built the library. ``--dump`` writes the
+whole disassembly to a file.
 Needs the CUDA toolkit, so it runs on the card's machine.
 """
 
@@ -63,8 +64,7 @@ def main(argv=None):
     if args.dump:
         Path(args.dump).parent.mkdir(parents=True, exist_ok=True)
         Path(args.dump).write_text(sass)
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = cuda_build.ptxas_lines(lib.log)
     for name, ops in kernels(sass).items():
         if args.match not in name:
             continue

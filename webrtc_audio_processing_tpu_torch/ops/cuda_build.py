@@ -139,6 +139,13 @@ def library() -> KernelLibrary:
     return _LIBRARY
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of a build's log that name each kernel and
+    give its registers and spills (none when the library was reused)."""
+    return [ln.strip() for ln in log.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
 def raw_stream(t) -> int:
     """The handle of PyTorch's current CUDA stream on ``t``'s device, read
     without building a ``torch.cuda.Stream`` object."""

@@ -10,15 +10,25 @@ windows of the wrap-extended low-rate render ring, gated by the x^2
 threshold and capture saturation (|y| >= 32000). See ``csrc/
 matched_filter.cu`` for the formulas.
 
-What bounds it on an H100: per launch it reads and writes the filters
-(B x N x taps floats each way, 21 MB at B = 2048) and writes the segments
-(another 21 MB), about 20 us at the card's bandwidth; its arithmetic is
-negligible. The kernel runs one 128-thread block per (stream, filter),
-10,240 blocks at B = 2048, with the taps in registers and the segment in
-shared memory; the 16 steps are dependent block reductions. Sums are taken
-in another order than the twin's, so they agree to float rounding: the
-tests hold h, alphas and err within 2e-5 of the largest value and
-``updated`` and ``segs`` exactly (``tests/test_pallas_mf_kernel.py``'s bar).
+What bounds it on an H100: per launch it reads the ring span that the
+segments touch and the filters and writes the filters and the segments
+(81 MB at B = 2048, N = 5, about 24 us at the card's bandwidth); its
+arithmetic (0.5 GFLOP) and its chain of 16 dependent NLMS steps are far
+below that. The kernel runs one warp per (stream, filter) with no block
+barrier: each lane holds taps / 32 consecutive taps and the segment values
+they touch in registers, each step reduces its two dot products in one
+transposed butterfly (6 shuffles), and every lane computes the step's gate
+and alpha itself. The segment and the filter pass through a padded
+shared-memory slice per warp, so every global read and write is coalesced;
+the overlap of a stream's five segments is left to L2 (staging it once per
+block measured slower). It is specialised for taps 512, sub 16, with a
+runtime-sub form for the rest of the domain. Sums are taken per lane as an
+FMA chain, then as a pairwise tree over the lanes, another order than the
+twin's, so they agree to float rounding: the tests hold h, alphas and err
+within 2e-5 of the largest value and ``updated`` and ``segs`` exactly
+(``tests/test_pallas_mf_kernel.py``'s bar), and
+``tests/test_torch_kernel_contracts.py`` holds a model of the kernel's
+order to ``_nlms_scan`` at the same bar.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.
@@ -89,6 +99,8 @@ def _check(lowrate, lr_read, h0, y, smoothing):
                     ("smoothing", smoothing)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if lr_read.dtype != torch.int32:
+        raise TypeError(f"lr_read must be int32, got {lr_read.dtype}")
     for t in (lr_read, h0, y, smoothing):
         if t.device != lowrate.device:
             raise ValueError(f"inputs on {t.device} and {lowrate.device}")
@@ -100,9 +112,8 @@ def nlms_cuda(lowrate, lr_read, h0, y, smoothing, *, shift: int,
     global launches
     _check(lowrate, lr_read, h0, y, smoothing)
     lib = cuda_build.library().lib
-    lowrate, h0, y, smoothing = (t.contiguous()
-                                 for t in (lowrate, h0, y, smoothing))
-    lr_read = lr_read.to(torch.int32).contiguous()
+    lowrate, lr_read, h0, y, smoothing = (
+        t.contiguous() for t in (lowrate, lr_read, h0, y, smoothing))
     B, N, taps = h0.shape
     sub = y.shape[1]
     dev = lowrate.device

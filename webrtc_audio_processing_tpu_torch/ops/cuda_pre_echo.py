@@ -8,12 +8,19 @@ h_i = h0 + sum_{j<i} a_j x_j, the squared error between y_i and each
 4-tap-chunk prefix of h_i . x_i, summed over the 16 steps: 128 errors per
 stream. See ``csrc/pre_echo.cu``.
 
-What bounds it on an H100: it reads about 5 KB per stream (10 MB at
-B = 2048, about 3 us at the card's bandwidth) and does little arithmetic,
-so the launch bounds it. One block per stream, one thread per chunk, a
-block-wide inclusive scan per step. Sums are taken in another order than
-the twin's: the tests hold it within 2e-4 after dividing by
-max(|out|, 1) (``tests/test_pallas_pre_echo.py``'s bar). Fusing it into
+What bounds it on an H100: it reads about 4.8 KB per stream (10 MB at
+B = 2048, about 3 us at the card's bandwidth); its 16 steps depend on each
+other only through one FMA per tap (the wex chain), so the bytes bound it.
+The kernel runs one warp per stream, four streams per block sharing
+nothing, and no block barrier: each lane holds 16 consecutive taps (4
+chunks) of h0, wex and the segment in registers, and each step takes the
+chunk sums and their prefix in the lane, then one warp scan of the lane
+totals. Specialised for taps 512, acc_rate 4, sub 16, with a general form
+(the same order, its state in shared memory) for the rest of the domain.
+Sums are taken in another order than the twin's: the tests hold it within
+2e-4 after dividing by max(|out|, 1) (``tests/test_pallas_pre_echo.py``'s
+bar), and ``tests/test_torch_kernel_contracts.py`` holds a model of the
+kernel's order to ``pre_echo_inst_xla`` at the same bar. Fusing it into
 K3 is open (ROADMAP Queue 4).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
