@@ -16,7 +16,9 @@ exits non-zero without a result line:
    general form at taps 256, acc_rate 8), K5 (window read) and K6 (the
    subtractor pair kernel, at 48 kHz stereo for 2 and 3 blocks with and
    without events, and at 16 kHz mono; both geometries also with render
-   spectra below the gains' noise gate) against their plain PyTorch twins on
+   spectra below the gains' noise gate; 48 kHz stereo also with window
+   starts that jump to the second chain or clamp at either end of it, the
+   twin given the clamped starts) against their plain PyTorch twins on
    the card at the main paths' shapes. Each row gives the call time (CUDA
    events around back-to-back calls from Python: what a caller pays, host
    work included), the device time (the calls captured in a CUDA graph and
@@ -97,15 +99,17 @@ K6_RTOL = 2e-3
 K6_TIE_ULPS = 4
 K6_MAX_RESET_SPLITS = 0.01
 # name: (streams, capture channels, render channels, blocks, events,
-# render spectra below the noise gate)
+# render spectra below the noise gate, window starts that jump chains or
+# clamp)
 K6_CASES = {
-    "48k_stereo_nb3": (B, 2, 2, 3, False, False),
-    "48k_stereo_nb3_events": (B, 2, 2, 3, True, False),
-    "48k_stereo_nb2": (B, 2, 2, 2, False, False),
-    "48k_stereo_nb2_events": (B, 2, 2, 2, True, False),
-    "48k_stereo_nb3_below_gate": (B, 2, 2, 3, False, True),
-    "16k_mono_nb3": (4096, 1, 1, 3, False, False),
-    "16k_mono_nb3_below_gate": (4096, 1, 1, 3, False, True),
+    "48k_stereo_nb3": (B, 2, 2, 3, False, False, False),
+    "48k_stereo_nb3_events": (B, 2, 2, 3, True, False, False),
+    "48k_stereo_nb2": (B, 2, 2, 2, False, False, False),
+    "48k_stereo_nb2_events": (B, 2, 2, 2, True, False, False),
+    "48k_stereo_nb3_below_gate": (B, 2, 2, 3, False, True, False),
+    "16k_mono_nb3": (4096, 1, 1, 3, False, False, False),
+    "16k_mono_nb3_below_gate": (4096, 1, 1, 3, False, True, False),
+    "48k_stereo_nb3_jumps": (B, 2, 2, 3, False, False, True),
 }
 
 
@@ -506,7 +510,8 @@ def kernels_phase(dev):
 # ---------------------------------------------------------------- K6 inputs
 
 
-def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False):
+def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False,
+              jumps=False):
     """Random inputs of K6 made with numpy from ``seed``: per stream the
     subtractor state of tests/test_subtractor_pallas.py:25-51 (random
     filters, H_error, responses; call counters 40, poor-excitation counters
@@ -522,9 +527,14 @@ def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False):
     ``events``: the initial-state transition on block 0, a delay change on
     block 1 of the even streams, poor excitation on block 1 of the odd ones,
     a narrow-band mask on block 1 and a saturated capture on the last
-    stream. The multichannel config (P = 13, Pc = 11) with two render
-    channels, the default (P = Pc = 13) with one, as the APM selects them.
-    Returns a dict of the arguments of ``cuda_subtractor.pair``."""
+    stream. Window starts move by -1 a block (a chain's trajectory) or,
+    with ``jumps``, on every fourth stream from 1 jump to the second chain
+    at block 1, from 2 end below the chain's first row and from 3 start
+    beyond its last window (the kernel clamps them; ``k6_clamped`` gives
+    the twin the clamped starts). The multichannel config (P = 13, Pc = 11)
+    with two render channels, the default (P = Pc = 13) with one, as the
+    APM selects them. Returns a dict of the arguments of
+    ``cuda_subtractor.pair``."""
     from webrtc_audio_processing_tpu_torch.models.aec3 import (
         config as aec3_config,
         render_buffer,
@@ -582,6 +592,11 @@ def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False):
     chain[..., 2 * L:3 * L] = re * re + im * im
     offsets = ((nb - 1 - np.arange(nb))[None, :]
                + (np.arange(batch) % 3)[:, None]).astype(np.int32)
+    if jumps:
+        k, W, hi = np.arange(nb), W2 // 2, W2 - P
+        offsets[1::4] = np.where(k == 0, nb - 1, W + nb - 1 - k)
+        offsets[2::4] = nb - 2 - k
+        offsets[3::4] = hi + nb - 1 - k
     ys = (rng.standard_normal((batch, nb, C, 64)) * 1000).astype(f32)
     masks = np.zeros((batch, nb, 65), bool)
     ev = np.zeros((batch, nb, 3), bool)
@@ -602,6 +617,14 @@ def k6_inputs(batch, C, R, nb, events, seed, device, below_gate=False):
         narrow_masks=torch.from_numpy(masks).to(device),
         events=torch.from_numpy(ev).to(device),
         saturated_capture=torch.from_numpy(sat).to(device))
+
+
+def k6_clamped(inp):
+    """``inp`` with each window start clamped into the chain, as the kernel
+    clamps it: the twin's arguments."""
+    P = inp["st"].H.shape[2]
+    hi = inp["sf_chain"].shape[1] - P
+    return {**inp, "offsets": inp["offsets"].clamp(0, hi)}
 
 
 def k6_leaves(result):
@@ -680,7 +703,7 @@ def k6_bound(inp):
     Bn, C, P, R, _ = st.H.shape
     nb = inp["ys"].shape[1]
     L = R * 65
-    offs = inp["offsets"].cpu().numpy()
+    offs = k6_clamped(inp)["offsets"].cpu().numpy()
     covered = np.zeros((Bn, inp["sf_chain"].shape[1]), bool)
     for k in range(nb):
         covered[np.arange(Bn)[:, None], offs[:, k:k + 1] + np.arange(P)] = True
@@ -700,18 +723,19 @@ def k6_bound(inp):
     return _bound_ms(n_bytes, float(per_block.sum()) * C * nb)
 
 
-def k6_case(dev, batch, C, R, nb, events, below_gate, seed):
+def k6_case(dev, batch, C, R, nb, events, below_gate, jumps, seed):
     from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor
 
-    inp = k6_inputs(batch, C, R, nb, events, seed, dev, below_gate)
-    config, geo, *args = inp.values()
+    inp = k6_inputs(batch, C, R, nb, events, seed, dev, below_gate, jumps)
+    config, _, *args = inp.values()
     got = cuda_subtractor.pair_cuda(config, *args)
-    want = cuda_subtractor.pair_plain(config, geo, *args)
+    twin = k6_clamped(inp)
+    want = cuda_subtractor.pair_plain(*twin.values())
     torch.cuda.synchronize()
     rel, err, unequal, splits = k6_compare(got, want)
     shape = (f"B={batch} C={C} R={R} P={inp['st'].H.shape[2]} "
              f"Pc={inp['st'].H_coarse.shape[2]} nb={nb} events={events} "
-             f"below_gate={below_gate}")
+             f"below_gate={below_gate} jumps={jumps}")
     if rel > K6_RTOL or unequal:
         raise AssertionError(
             f"K6 differs from its twin ({shape}): {rel} of scale, failing "
@@ -722,7 +746,7 @@ def k6_case(dev, batch, C, R, nb, events, below_gate, seed):
         tie_splits=splits,
         **_times(lambda: cuda_subtractor.pair_cuda(config, *args), 20, 10),
         plain_ms=_event_ms(
-            lambda: cuda_subtractor.pair_plain(config, geo, *args), 3),
+            lambda: cuda_subtractor.pair_plain(*twin.values()), 3),
         bound_ms=bound, bound_by=by, shape=shape)
 
 

@@ -299,15 +299,18 @@ def test_aec3_path_runs_through_every_kernel(device):
                                                              4]
 
 
-@pytest.mark.parametrize("events", [False, True])
-@pytest.mark.parametrize("nb", [2, 3])
-@pytest.mark.parametrize("C,R", [(2, 2), (1, 1)])
-def test_k6_matches_twin(device, C, R, nb, events):
+@pytest.mark.parametrize("C,R,nb,events,jumps", [
+    (C, R, nb, events, False) for C, R in [(2, 2), (1, 1)] for nb in [2, 3]
+    for events in [False, True]] + [(2, 2, 3, False, True),
+                                    (1, 1, 2, False, True)])
+def test_k6_matches_twin(device, C, R, nb, events, jumps):
     """K6 at the 48 kHz stereo (C = R = 2, P = 13, Pc = 11) and 16 kHz mono
     (C = R = 1, P = Pc = 13) geometries: float leaves within 2e-3 of their
     scale (tests/test_subtractor_pallas.py's bar), integer leaves exact
-    (with chip_smoke.k6_compare's rule for refined/coarse ties)."""
-    _check_k6(device, C, R, nb, events, below_gate=False)
+    (with chip_smoke.k6_compare's rule for refined/coarse ties). With
+    ``jumps``, window starts that jump to the second chain or clamp at
+    either end of it, which the kernel loads block by block."""
+    _check_k6(device, C, R, nb, events, below_gate=False, jumps=jumps)
 
 
 @pytest.mark.parametrize("nb", [2, 3])
@@ -319,13 +322,13 @@ def test_k6_matches_twin_below_the_noise_gate(device, C, R, nb):
     _check_k6(device, C, R, nb, False, below_gate=True)
 
 
-def _check_k6(device, C, R, nb, events, below_gate):
+def _check_k6(device, C, R, nb, events, below_gate, jumps=False):
     inp = chip_smoke.k6_inputs(256, C, R, nb, events, seed=nb + 2 * C,
-                               device=device, below_gate=below_gate)
-    args = tuple(inp.values())
+                               device=device, below_gate=below_gate,
+                               jumps=jumps)
     before = cuda_subtractor.launches
-    got = cuda_subtractor.pair(*args)
-    want = cuda_subtractor.pair_plain(*args)
+    got = cuda_subtractor.pair(*inp.values())
+    want = cuda_subtractor.pair_plain(*chip_smoke.k6_clamped(inp).values())
     torch.cuda.synchronize()
     rel, _, unequal, _ = chip_smoke.k6_compare(got, want)
     assert rel <= chip_smoke.K6_RTOL and not unequal, (rel, unequal)

@@ -18,6 +18,12 @@
   at the kernels' bars, on inputs with near-converged filters and x^2
   near the gate's threshold, so the kernels' order, not only the twins',
   stays inside them.
+- K6 computes each 128-point real transform as a warp's 64-point complex
+  FFT plus the real split or merge, pruned by the half-zero inputs and
+  half-read outputs. A numpy model of that order is held to ``np.fft`` in
+  float64 for its four uses (the prediction tail, the error transform,
+  the constrain's head and forward), bins 0 and 64 of an inverse read as
+  real.
 - ``cuda_build.ptxas_lines`` keeps each kernel's entry line with its
   registers and spills (``chip_smoke.py``'s build phase prints them).
 - The K2, K3 and K5 wrappers refuse an index that is not of their integer
@@ -377,3 +383,185 @@ def test_ptxas_lines_name_each_kernel():
         "8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
         "ptxas info    : Used 60 registers, used 0 barriers"]
     assert cuda_build.ptxas_lines("") == []
+
+# ------------------------------------------------- K6's 128-point transforms
+#
+# K6 computes each 128-point real transform as a 64-point complex FFT on one
+# warp (lane j holds points j and j + 32, cross-lane butterflies by
+# shuffles) and the real split or merge step. The model below follows the
+# kernel's order operation for operation (its __fmaf_rn, __fmul_rn,
+# __fadd_rn and __fsub_rn), vectorised over the 32 lanes.
+
+
+def _sincos128():
+    """K6's twiddle table: (cos, sin) of 2 pi m / 128, m < 128, in
+    float32."""
+    m = np.arange(128)
+    return (np.cos(2 * np.pi * m / 128).astype(np.float32),
+            np.sin(2 * np.pi * m / 128).astype(np.float32))
+
+
+def _rev5(j):
+    return np.array([int(f"{v:05b}"[::-1], 2) for v in np.ravel(j)])
+
+
+def _stage_twiddle(h):
+    """Lane j's twiddle index into the 128-point table at butterfly
+    distance h: W64^((j mod h) * 32 / h) = W128^(2 (j mod h) * 32 / h)."""
+    j = np.arange(32)
+    return 2 * (j & (h - 1)) * (32 // h)
+
+
+def _f(x):
+    return np.asarray(x, np.float32)
+
+
+def _cmul(vx, vy, c, s, sign):
+    """(vx + i vy)(c + i sign s), each part one multiply and one fma."""
+    re = exact_fma(vx, c, _f(-sign * _f(vy * s)))
+    im = exact_fma(vy, c, _f(sign * _f(vx * s)))
+    return re, im
+
+
+def _xor_lanes(v, h):
+    return v[..., np.arange(32) ^ h]
+
+
+def k6_fft64_forward(z0, z1):
+    """Decimation in frequency, forward (W64 = exp(-2 pi i / 64)): lane j's
+    points j and j + 32 in (z0, z1) = ((re, im), (re, im)), each (..., 32).
+    Returns the lanes' registers: point n holds Z[rev6(n)]."""
+    c, s = _sincos128()
+    t = 2 * np.arange(32)  # stage 32: W64^j
+    (ax, ay), (bx, by) = z0, z1
+    z0 = (_f(ax + bx), _f(ay + by))
+    z1 = _cmul(_f(ax - bx), _f(ay - by), c[t], s[t], -1)
+    upper = None
+    for h in (16, 8, 4, 2, 1):
+        t = _stage_twiddle(h)
+        upper = (np.arange(32) & h) != 0
+        regs = []
+        for vx, vy in (z0, z1):
+            px, py = _xor_lanes(vx, h), _xor_lanes(vy, h)
+            bx, by = _cmul(_f(px - vx), _f(py - vy), c[t], s[t], -1)
+            regs.append((np.where(upper, bx, _f(vx + px)),
+                         np.where(upper, by, _f(vy + py))))
+        z0, z1 = regs
+    return z0, z1
+
+
+def k6_rfft(x):
+    """rfft of (..., 128) float32 in K6's order -> (re, im) (..., 65)."""
+    x = _f(x)
+    z0 = (x[..., 0:64:2], x[..., 1:64:2])
+    z1 = (x[..., 64::2], x[..., 65::2])
+    z0, z1 = k6_fft64_forward(z0, z1)
+    # Z in natural order: lane j holds Z[2 rev5(j)] and Z[2 rev5(j) + 1].
+    m = _rev5(np.arange(32))
+    Zx = np.empty(x.shape[:-1] + (64,), np.float32)
+    Zy = np.empty_like(Zx)
+    Zx[..., 2 * m], Zy[..., 2 * m] = z0
+    Zx[..., 2 * m + 1], Zy[..., 2 * m + 1] = z1
+    c, s = _sincos128()
+    k = np.arange(65)
+    ax, ay = Zx[..., k % 64], Zy[..., k % 64]
+    bx, by = Zx[..., (64 - k) % 64], -Zy[..., (64 - k) % 64]  # conj
+    sx, sy = _f(ax + bx), _f(ay + by)
+    dx, dy = _f(ax - bx), _f(ay - by)
+    re = exact_fma(c[k], dy, exact_fma(-s[k], dx, sx))
+    im = exact_fma(-c[k], dx, exact_fma(-s[k], dy, sy))
+    return _f(0.5 * re), _f(0.5 * im)
+
+
+def k6_irfft(Xr, Xi):
+    """irfft to (..., 128) of 65 bins in K6's order; the imaginary parts of
+    bins 0 and 64 are ignored."""
+    Xr, Xi = _f(Xr), _f(Xi).copy()
+    Xi[..., 0] = 0.0
+    Xi[..., 64] = 0.0
+    c, s = _sincos128()
+    k = np.arange(64)
+    ax, ay = Xr[..., k], Xi[..., k]
+    bx, by = Xr[..., 64 - k], -Xi[..., 64 - k]  # conj(X[64 - k])
+    ex, ey = _f(ax + bx), _f(ay + by)
+    dx, dy = _f(ax - bx), _f(ay - by)
+    Zx = exact_fma(-dy, c[k], exact_fma(-dx, s[k], ex))
+    Zy = exact_fma(dx, c[k], exact_fma(-dy, s[k], ey))
+    # Decimation in time, inverse: point n starts with Z[rev6(n)].
+    m = 2 * _rev5(np.arange(32))
+    z0, z1 = (Zx[..., m], Zy[..., m]), (Zx[..., m + 1], Zy[..., m + 1])
+    for h in (1, 2, 4, 8, 16):
+        t = _stage_twiddle(h)
+        upper = (np.arange(32) & h) != 0
+        regs = []
+        for vx, vy in (z0, z1):
+            tx, ty = _cmul(vx, vy, c[t], s[t], 1)
+            sx = np.where(upper, tx, vx)
+            sy = np.where(upper, ty, vy)
+            px, py = _xor_lanes(sx, h), _xor_lanes(sy, h)
+            regs.append((np.where(upper, _f(px - tx), _f(vx + px)),
+                         np.where(upper, _f(py - ty), _f(vy + py))))
+        z0, z1 = regs
+    t = 2 * np.arange(32)
+    tx, ty = _cmul(*z1, c[t], s[t], 1)
+    lo = (_f(z0[0] + tx), _f(z0[1] + ty))  # z[j]
+    hi = (_f(z0[0] - tx), _f(z0[1] - ty))  # z[j + 32]
+    out = np.empty(Xr.shape[:-1] + (128,), np.float32)
+    scale = np.float32(1 / 128)
+    out[..., 0:64:2], out[..., 1:64:2] = lo[0] * scale, lo[1] * scale
+    out[..., 64::2], out[..., 65::2] = hi[0] * scale, hi[1] * scale
+    return out
+
+
+HANNING64 = (np.sin(np.pi * np.arange(64) / 63.0) ** 2).astype(np.float32)
+
+
+def _spectra(rng, shape, scale):
+    """Random spectra whose bins 0 and 64 carry imaginary parts too (a
+    real inverse ignores them)."""
+    return (_f(rng.standard_normal(shape + (65,)) * scale),
+            _f(rng.standard_normal(shape + (65,)) * scale))
+
+
+def _k6_use(use, R, rng):
+    """(K6's result in its order, np.fft's in float64) for one use of the
+    transforms at R render channels, 16 transforms of each."""
+    if use == "prediction_tail":
+        # S is the sum of the R render channels' partial products.
+        parts = [_spectra(rng, (16,), 3e4) for _ in range(R)]
+        Sr, Si = parts[0]
+        for pr, pi in parts[1:]:
+            Sr, Si = _f(Sr + pr), _f(Si + pi)
+        got = k6_irfft(Sr, Si)[..., 64:]
+        want = np.fft.irfft(Sr.astype(np.float64) + 1j * Si, 128)[..., 64:]
+        return got, want
+    if use == "error_forward":
+        e = _f(rng.standard_normal((16, R, 64)) * 1e3)
+        x = np.concatenate([np.zeros_like(e), _f(HANNING64 * e)], axis=-1)
+        got = k6_rfft(x)
+        want = np.fft.rfft(x.astype(np.float64), 128)
+        return got[0] + 1j * got[1].astype(np.float64), want
+    if use == "constrain_head":
+        Hr, Hi = _spectra(rng, (16, R), 0.1)
+        got = k6_irfft(Hr, Hi)[..., :64]
+        want = np.fft.irfft(Hr.astype(np.float64) + 1j * Hi, 128)[..., :64]
+        return got, want
+    h = _f(rng.standard_normal((16, R, 64)) * 1e-2)
+    x = np.concatenate([h, np.zeros_like(h)], axis=-1)
+    got = k6_rfft(x)
+    want = np.fft.rfft(x.astype(np.float64), 128)
+    return got[0] + 1j * got[1].astype(np.float64), want
+
+
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("use", ["prediction_tail", "error_forward",
+                                 "constrain_head", "constrain_forward"])
+def test_k6_transform_order_matches_numpy_fft(use, R):
+    """K6's pruned FFT order against np.fft in float64, within 1e-6 of the
+    output's scale (a few float32 ulps; the kernel is held to its twin at
+    K6_RTOL = 2e-3), for each of its four uses; the inverse ignores the
+    imaginary parts of bins 0 and 64."""
+    rng = np.random.default_rng(len(use) * 10 + R)
+    got, want = _k6_use(use, R, rng)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 1e-6, err

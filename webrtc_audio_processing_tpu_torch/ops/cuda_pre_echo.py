@@ -21,7 +21,7 @@ Sums are taken in another order than the twin's: the tests hold it within
 2e-4 after dividing by max(|out|, 1) (``tests/test_pallas_pre_echo.py``'s
 bar), and ``tests/test_torch_kernel_contracts.py`` holds a model of the
 kernel's order to ``pre_echo_inst_xla`` at the same bar. Fusing it into
-K3 is open (ROADMAP Queue 4).
+K3 is open (ROADMAP Queue 2 item 3).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.

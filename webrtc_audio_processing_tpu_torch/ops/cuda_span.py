@@ -12,7 +12,7 @@ What bounds it on an H100: it only moves data, B x W x F x 4 bytes in and
 as many out (about 80 MB each way at B = 2048, W = 19, F = 512), so the
 card's bandwidth bounds it. One block per stream copies its W * F floats
 as 16-byte vectors, consecutive threads on consecutive addresses. Reading
-the rings in place, without this copy, is open (ROADMAP Queue 4).
+the rings in place, without this copy, is open (ROADMAP Queue 2 item 3).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.

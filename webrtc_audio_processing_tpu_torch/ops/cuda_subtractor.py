@@ -8,21 +8,28 @@ the port's ``models/aec3/subtractor.process_pair``, which the plain twin
 calls on the windows it cuts out of the render chain. See
 ``csrc/subtractor.cu`` for the steps.
 
-What bounds it on an H100: bytes. Per launch it reads and writes each state
-plane once (at 48 kHz stereo, B = 2048: refined H 55.4 MB, coarse H 46.9
-MB, frequency and impulse responses 13.8 and 13.6 MB, H_error 1.1 MB, 131
-MB each way), reads the frame's window rows of the sf chain (48 MB when the
-three windows overlap, up to 159 MB for the whole chain) and writes the
-per-block outputs (89 MB at 3 blocks): about 0.12-0.15 ms at 3.35 TB/s; the
-arithmetic (direct 128-point transforms, a few per block) is small beside
-it. The kernel runs one 256-thread block per (stream, capture channel); the
-channel's filters, window and responses stay in shared memory across the
-blocks, so nothing is read or written twice. The large planes are read and
-written where the state keeps them (complex64 as interleaved float pairs);
-only the per-stream scalars are packed, into a (B, 21 + 3 C) float32 and a
-(B, 16 + 4 C) int32 vector in the slot order of ``pallas_subtractor.py:
-62-105``. Transforms and sums run in another order than the twin's
-``torch.fft``: float leaves agree to rounding, integer leaves exactly.
+What bounds it on an H100. Its least time is set by bytes: per launch it
+reads and writes each state plane once (at 48 kHz stereo, B = 2048: refined
+H 55.4 MB, coarse H 46.9 MB, frequency and impulse responses 13.8 and 13.6
+MB, H_error 1.1 MB, 131 MB each way), reads the frame's window rows of the
+sf chain (48 MB when the three windows overlap) and writes the per-block
+outputs (89 MB at 3 blocks): 0.12 ms at 3.35 TB/s. What it takes is set by
+latency: each (stream, capture channel) runs a chain of dependent steps per
+block (products, two 128-point inverse and forward transforms per filter,
+gains, adapt and constrain, responses), so the time is the chain's length
+times the waves of blocks the card runs. The kernel keeps the chain short
+and wide (``csrc/subtractor.cu``): one block per (stream, capture channel)
+with its filters, window, responses and scalars in shared memory for the
+frame; the transforms as FFTs on one warp each, the two filters' and the
+render channels' side by side; the per-stream scalars in shared memory, so
+that three 256-thread blocks fit an SM; the frame's window rows staged once
+when the blocks' starts are consecutive; six barriers a block. The large
+planes are read and written where the state keeps them (complex64 as
+interleaved float pairs); only the per-stream scalars are packed, into a
+(B, 21 + 3 C) float32 and a (B, 16 + 4 C) int32 vector in the slot order of
+``pallas_subtractor.py:62-105``. Transforms and sums run in another order
+than the twin's ``torch.fft``: float leaves agree to rounding, integer
+leaves exactly.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.
@@ -238,14 +245,14 @@ def _config_args(config: EchoCanceller3Config, P: int, Pc: int):
     return (ctypes.c_float * 14)(*floats), (ctypes.c_int * 6)(*ints)
 
 
-def pair_cuda(config: EchoCanceller3Config, st: PairState, sf_chain, offsets,
-              ys, narrow_masks, events, saturated_capture):
-    """Launch the kernel on PyTorch's current stream; it reads the chain
-    rows as [re | im | spectrum | 0]."""
-    global launches
+def launch_args(config: EchoCanceller3Config, st: PairState, sf_chain,
+                offsets, ys, narrow_masks, events, saturated_capture):
+    """The arguments of ``subtractor_pair_f32`` but the stream, the (new
+    PairState, PairOutputs) the launch writes, and the input tensors the
+    pointers point into (the caller holds them until the launch is
+    enqueued: a contiguous copy would otherwise be freed first)."""
     _check(st, sf_chain, offsets, ys, narrow_masks, events,
            saturated_capture)
-    lib = cuda_build.library().lib
     B, C, P, R, _ = st.H.shape
     Pc = st.H_coarse.shape[2]
     nb = ys.shape[1]
@@ -265,13 +272,24 @@ def pair_cuda(config: EchoCanceller3Config, st: PairState, sf_chain, offsets,
         imp=torch.empty((B, nb, C, P * BLOCK), **f32),
         size=torch.empty((B, nb), dtype=torch.int32, device=dev))
     fcfg, icfg = _config_args(config, P, Pc)
-    stream = cuda_build.raw_stream(st.H)
-    rc = lib.subtractor_pair_f32(
-        *(t.data_ptr() for t in (*inputs, *new, *out)), B, C, P, Pc, R,
-        sf_chain.shape[1], sf_chain.shape[2], nb, fcfg, icfg, stream)
+    args = (*(t.data_ptr() for t in (*inputs, *new, *out)), B, C, P, Pc, R,
+            sf_chain.shape[1], sf_chain.shape[2], nb, fcfg, icfg)
+    return args, (new, out), inputs
+
+
+def pair_cuda(config: EchoCanceller3Config, st: PairState, sf_chain, offsets,
+              ys, narrow_masks, events, saturated_capture):
+    """Launch the kernel on PyTorch's current stream; it reads the chain
+    rows as [re | im | spectrum | 0]."""
+    global launches
+    args, result, _inputs = launch_args(config, st, sf_chain, offsets, ys,
+                                        narrow_masks, events,
+                                        saturated_capture)
+    rc = cuda_build.library().lib.subtractor_pair_f32(
+        *args, cuda_build.raw_stream(st.H))
     cuda_build.check(rc, "subtractor_pair_f32")
     launches += 1
-    return new, out
+    return result
 
 
 def pair(config: EchoCanceller3Config, geo: rb.BufferGeometry,
