@@ -49,6 +49,21 @@ exits non-zero without a result line:
    finds the first diverging leaf).
 6. slice-1 path (echo canceller off): 30 timed frames, one K1 and one K5
    launch per frame, and its cross-check on 4 streams.
+7. After each AEC3 path's cross-check, the same path graphed: the frame
+   pair step (``step_graph.PairGraph``: two ``Apm.forward`` calls, AEC3's
+   block ordinal on the device) captured as one CUDA graph from
+   ``init_state`` and replayed 150 times over the same scene. The captured
+   launches per pair must be phase 4's for two frames, the checked
+   streams' outputs and delays on every frame bit-equal to phase 4's eager
+   run (the graph replays the same kernels in the same order), ERLE above
+   6 dB. It prints ms per frame over the last 100 frames (host clock and
+   CUDA events), real-time streams, the capture's seconds, device kernels
+   per frame (torch.profiler over two replays after a warm-up replay), the
+   peak device memory and the memory the graph's pool holds.
+8. The bench twin (``webrtc_audio_processing_tpu_torch/bench.py``) at one
+   batch a mode, B = 2048 at 48 kHz stereo and B = 4096 at 16 kHz mono,
+   with the subtractor ``AEC3_PAIR_KERNEL`` selects: the line the twin
+   prints for those batches.
 
 Before the last line the kernel table as JSON, then the result JSON. The
 script imports no JAX.
@@ -231,9 +246,13 @@ def _graph_ms(fn, n, replays=5):
 
 
 def _times(fn, n_call, n_graph):
-    """A wrapper's call time, device time and device kernels per call."""
+    """A wrapper's call time, device time and device kernels per call
+    (torch.profiler, after a warm-up step: the bench twin's count)."""
+    from webrtc_audio_processing_tpu_torch import bench
+
     return dict(ms=_event_ms(fn, n_call), device_ms=_graph_ms(fn, n_graph),
-                device_kernels_per_call=_device_kernels([fn] * 5, [fn] * 5))
+                device_kernels_per_call=bench.device_kernels([fn] * 5,
+                                                             [fn] * 5))
 
 
 def _bound_ms(n_bytes, n_ops=0.0, chain_s=0.0):
@@ -795,8 +814,9 @@ def erle_db(capture, render, out, frame=480):
 
 def select_streams(state, idx, device):
     """The state of streams ``idx`` (batch axis first) on ``device``; plain
-    ints (the frame counter) carry over. CUDA indexes no uint32 tensor
-    (the comfort-noise seed), so those go through int64."""
+    ints (the frame counter) carry over and 0-d tensors (AEC3's block
+    ordinal, uniform across the batch) are copied. CUDA indexes no uint32
+    tensor (the comfort-noise seed), so those go through int64."""
     if state is None or isinstance(state, int):
         return state
     if dataclasses.is_dataclass(state):
@@ -804,6 +824,8 @@ def select_streams(state, idx, device):
             f.name: select_streams(getattr(state, f.name), idx, device)
             for f in dataclasses.fields(state)
         })
+    if state.dim() == 0:
+        return state.to(device, copy=True)
     if state.dtype == torch.uint32:
         return state.to(torch.int64)[idx].to(device).to(torch.uint32)
     return state[idx].to(device)
@@ -907,28 +929,6 @@ def expected_aec3_launches(n_frames, rate=48000, pair_kernel=False):
             "subtractor_pair": n_frames if pair_kernel else 0}
 
 
-def _device_kernels(warm, counted):
-    """The device operations per call over the calls in ``counted``, by
-    torch.profiler, after the calls in ``warm`` as the profiler's warm-up
-    step, whose records it discards (sessions without one lost the device
-    records of whole calls on the card's machine). The step's own range
-    on the device (``ProfilerStep#``) is not an operation."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for calls in (warm, counted):
-            for fn in calls:
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and not ev.key.startswith("ProfilerStep")) / len(counted)
-
-
 @functools.lru_cache(maxsize=1)
 def _scene(mode, batch):
     rate, channels, _ = BENCH_MODES[mode]
@@ -936,7 +936,7 @@ def _scene(mode, batch):
 
 
 def aec3_path_phase(dev, smi, path):
-    from webrtc_audio_processing_tpu_torch import apm
+    from webrtc_audio_processing_tpu_torch import apm, bench
 
     rate, channels, _ = BENCH_MODES[path.mode]
     frame, Bp = rate // 100, path.batch
@@ -973,7 +973,7 @@ def aec3_path_phase(dev, smi, path):
             if f in cross:  # outside the profiled and sync-counted calls
                 snapshots.append(select_streams(state, idx, "cpu"))
             if f == profiled[0]:  # the profiler's warm-up, then the rest
-                kernels.append(_device_kernels(
+                kernels.append(bench.device_kernels(
                     [lambda f=f: step(f)],
                     [lambda g=g: step(g) for g in profiled[1:]]))
             elif f in profiled:
@@ -1087,6 +1087,126 @@ def aec3_cross_check_phase(path, geo, snapshots, render, capture, gpu_out,
         raise AssertionError(f"relative RMS {rel} exceeds {RTOL_RMS}")
     if not same_delay:
         raise AssertionError("delay_ms differs between card and CPU")
+
+
+# ------------------------------------------------------- graphed paths
+
+
+def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
+    """Phase 7: ``path`` through the captured pair step, held bit for bit
+    to phase 4's eager outputs ``eager_out`` (S, n, channels) and delays
+    ``eager_delay`` (S, frames) on the checked streams. Returns the
+    launches: captured per pair x replays."""
+    from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
+
+    rate, channels, _ = BENCH_MODES[path.mode]
+    frame, Bp = rate // 100, path.batch
+    render, capture = _scene(path.mode, Bp)
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    geo = aec3_geometry(path.mode, path.pair_kernel)
+    idx = torch.tensor(path.check, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, Bp))
+    reserved = torch.cuda.memory_reserved()
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+    pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    want = expected_aec3_launches(2, rate, path.pair_kernel)
+    if captured != want:
+        raise AssertionError(f"{path.name} captured {captured} launches a "
+                             f"pair, expected {want}")
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    replays = AEC3_FRAMES // 2
+    first_timed = replays - AEC3_TIMED // 2
+    timer_start = torch.cuda.Event(enable_timing=True)
+    timer_end = torch.cuda.Event(enable_timing=True)
+    outs, delays, finite = [], [], []
+    for p in range(replays):
+        if p == first_timed:
+            torch.cuda.synchronize()
+            host_t0 = time.perf_counter()
+            timer_start.record()
+        for out, rout, stats in graph.replay(*frames(p)):
+            outs.append(out[idx])
+            delays.append(stats["delay_ms"][idx])
+            finite.append(torch.isfinite(out).all()
+                          & torch.isfinite(rout).all())
+    timer_end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host_t0) * 1000.0 / AEC3_TIMED
+    dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
+    # The state runs on past the scene: the last pair's frames again.
+    kernels = bench.device_kernels(
+        [lambda: graph.replay(*frames(replays - 1))],
+        [lambda: graph.replay(*frames(replays - 1))] * 2) / 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"non-finite output on {path.name}, graphed")
+    got_out = torch.cat(outs, dim=1).cpu().numpy()
+    got_delay = torch.stack(delays, dim=1).cpu().numpy()
+    differ = [f for f in range(AEC3_FRAMES) if not np.array_equal(
+        got_out[:, f * frame:(f + 1) * frame],
+        eager_out[:, f * frame:(f + 1) * frame])]
+    same_delay = bool(np.array_equal(got_delay, eager_delay))
+    check = list(path.check)
+    erle = erle_db(capture[check], render[check], got_out, frame)
+    launches = {k: v * replays for k, v in captured.items()}
+    phase(f"{path.name}_graphed", mode=path.mode, streams=Bp,
+          pair_kernel=path.pair_kernel, frames=AEC3_FRAMES,
+          timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
+          event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          capture_seconds=graph.capture_seconds,
+          device_kernels_per_frame=kernels,
+          launches_captured_per_pair=captured, launches=launches,
+          bit_equal_to_eager=not differ and same_delay,
+          frames_differing_from_eager=len(differ),
+          first_frame_differing=differ[0] if differ else None,
+          delay_ms_equal_to_eager=same_delay,
+          rel_rms_to_eager=_rel_rms(got_out, eager_out).tolist(),
+          peak_mem_gb=peak_gb, graph_pool_gb=pool_gb, card=smi,
+          erle_db=dict(zip(map(str, path.check), erle.tolist())))
+    if differ or not same_delay:
+        raise AssertionError(
+            f"{path.name} graphed differs from its eager run: {len(differ)} "
+            f"frames from frame {differ[0] if differ else None}, delays "
+            f"equal {same_delay}")
+    if not (erle > ERLE_BAR_DB).all():
+        raise AssertionError(f"ERLE {erle} dB not above {ERLE_BAR_DB} dB")
+    return launches
+
+
+# Phase 8's batches, one a mode (the main paths' B).
+TWIN_BATCHES = {"48k_stereo": 2048, "16k_mono": 4096}
+
+
+def bench_twin_phase(dev, smi):
+    """Phase 8: the bench twin's measurement at one batch a mode, and the
+    line it prints for them."""
+    from webrtc_audio_processing_tpu_torch import bench
+    from webrtc_audio_processing_tpu_torch.models.aec3 import echo_canceller3
+
+    pair_kernel = echo_canceller3.pair_kernel_from_env()
+    best, results = {}, {}
+    for mode, n in TWIN_BATCHES.items():
+        geo = bench.build_geometry(mode, pair_kernel)
+        rng = np.random.default_rng(0)
+        best[mode], results[mode] = bench.measure_streams(
+            mode, float("inf"), (n,),
+            lambda b, geo=geo, rng=rng: bench.throughput(geo, b, rng, dev))
+        if n not in results[mode] or best[mode] <= 0:
+            raise AssertionError(f"the bench twin measured nothing at {mode} "
+                                 f"B = {n}")
+    phase("bench_twin", line=bench.result_line(
+        best["48k_stereo"], best["16k_mono"], results, smi, pair_kernel))
 
 
 # ----------------------------------------------------------- slice-1 path
@@ -1236,15 +1356,22 @@ def main(argv=None):
         run, launches[path.name] = aec3_path_phase(dev, smi, path)
         t1 = time.perf_counter()
         aec3_cross_check_phase(path, *run)
+        t2 = time.perf_counter()
+        graphed = f"{path.name}_graphed"
+        launches[graphed] = graphed_path_phase(dev, smi, path, *run[4:])
         walls[path.name] = round(t1 - t0, 3)
-        walls[f"{path.name}_cross_check"] = round(time.perf_counter() - t1, 3)
+        walls[f"{path.name}_cross_check"] = round(t2 - t1, 3)
+        walls[graphed] = round(time.perf_counter() - t2, 3)
     t2 = time.perf_counter()
     slice_path_phase(dev, smi)
     t3 = time.perf_counter()
+    bench_twin_phase(dev, smi)
+    t4 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
-          total=round(t3 - t_all, 3))
+          bench_twin=round(t4 - t3, 3), total=round(t4 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
-    # pair-kernel path, K1-K5 on the default one; every path beside them.
+    # pair-kernel path, K1-K5 on the default one; every path beside them,
+    # the graphed ones as launches captured per pair x replays.
     for r in rows:
         main_path = ("pair_kernel_48k" if r["name"] == "subtractor_pair"
                      else "aec3_path")

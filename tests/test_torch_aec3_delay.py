@@ -30,6 +30,7 @@ from tests.torch_aec3_setup import (
     assert_states_close,
     batched,
     flat,
+    ordinal,
     geometries,
     t,
     torch_tree,
@@ -138,7 +139,7 @@ def test_delay_phase_matches_jax_on_a_delayed_echo():
         jbuf, buf = js.buffer, state.buffer
         if parity == 0:
             jbuf = flush(jbuf, jnp.int32(n0))
-            buf = rb.flush_sf_pending(geo.buffer, buf, n0)
+            buf = rb.flush_sf_pending(geo.buffer, buf, ordinal(n0))
         # The frame blocker only slices: both packages take its blocks.
         blocks, carry = ec3._split_blocks(t(render),
                                           state.render_blocker_carry, parity)
@@ -146,8 +147,8 @@ def test_delay_phase_matches_jax_on_a_delayed_echo():
         for k, blk in enumerate(blocks):
             jbuf, _ = inserts[base + k](jbuf, blk.numpy(),
                                         jnp.int32(n0 + k + 1))
-            buf, _ = rb.insert(geo.buffer, geo.config, buf, blk, n0 + k + 1,
-                               sf_slot=base + k)
+            buf, _ = rb.insert(geo.buffer, geo.config, buf, blk,
+                               ordinal(n0 + k + 1), sf_slot=base + k)
         js = js.replace(buffer=jbuf)
         state = state.replace(buffer=buf, render_blocker_carry=carry)
         n = n0 + len(blocks)
@@ -156,7 +157,8 @@ def test_delay_phase_matches_jax_on_a_delayed_echo():
                                             parity)
         for blk in cblocks:
             js, jdch, jdl, jvl = phase(js, blk.numpy(), jnp.int32(n))
-            state, dch, dl, vl = ec3._delay_phase_block(geo, state, blk, n)
+            state, dch, dl, vl = ec3._delay_phase_block(geo, state, blk,
+                                                        ordinal(n))
             np.testing.assert_array_equal(dl.numpy(), np.asarray(jdl))
             np.testing.assert_array_equal(vl.numpy(), np.asarray(jvl))
             np.testing.assert_array_equal(dch.numpy(), np.asarray(jdch))

@@ -37,6 +37,7 @@ from tests.torch_aec3_setup import (
     assert_states_close,
     batched,
     flat,
+    ordinal,
     geometries,
     t,
     torch_tree,
@@ -137,7 +138,7 @@ def test_process_capture_pair_matches_jax():
         evl = rng.uniform(size=(nb, B)) > 0.5
         rem, jouts, jlins = _j_pair(nb)(rem, buf, blocks, dch, sat, edl,
                                         evl, jnp.int32(n))
-        views = [rb.RenderView(bstate, n, 2 if nb == 2 else 5)] * nb
+        views = [rb.RenderView(bstate, ordinal(n), 2 if nb == 2 else 5)] * nb
         state, outs, lins = er.process_capture_pair(
             geo.config, state, geo.buffer, views, list(t(blocks)),
             list(t(dch)), t(np.zeros(B, bool)), t(sat), list(t(edl)),
@@ -234,7 +235,7 @@ def test_echo_audibility_update_matches_jax():
                            j_rb.headroom(jgeo.buffer, b), ext, False)
 
     upd = jax.jit(jax.vmap(jupd))
-    view = rb.RenderView(bstate, n, 5)
+    view = rb.RenderView(bstate, ordinal(n), 5)
     for _ in range(10):
         newest = (rng.standard_normal((B, 64, 2)) * 50).astype(F32)
         reverb = rng.uniform(0, 1e6, (B, 65)).astype(F32)
@@ -242,8 +243,9 @@ def test_echo_audibility_update_matches_jax():
         ext = rng.uniform(size=B) > 0.3
         jst = upd(jst, buf, newest, reverb, delay, ext)
         st = ea.update(st, geo.buffer, view,
-                       rb.s_read_index(geo.buffer, bstate, n),
-                       rb.s_write_index(geo.buffer, n), t(newest), t(reverb),
+                       rb.s_read_index(geo.buffer, bstate, ordinal(n)),
+                       rb.s_write_index(geo.buffer, ordinal(n)), t(newest),
+                       t(reverb),
                        t(delay), rb.headroom(geo.buffer, bstate), t(ext),
                        False)
     assert_states_close(apm.state_to_numpy(st), flat(jst), rtol=1e-5)

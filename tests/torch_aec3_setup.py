@@ -95,3 +95,7 @@ def torch_tree(template, tree):
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
+
+def ordinal(n):
+    """AEC3's block ordinal as the port takes it: a 0-d int32 tensor."""
+    return torch.tensor(n, dtype=torch.int32)

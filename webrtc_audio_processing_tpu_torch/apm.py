@@ -20,9 +20,13 @@ Usage, with B streams on one device::
 ``Apm(geo)`` is the ``nn.Module`` behind ``process_stream_pair``; the
 functions keep one per geometry and device. AEC3 runs its blocks on a
 static cadence: the state carries a plain frame counter, uniform across the
-batch, from which each step takes its parity and block ordinal; the AEC3
-render rings are updated in place. AEC3's subtractor runs as plain PyTorch
-unless ``aec3_pair_kernel`` is true, when it runs on the pair kernel K6
+batch, from which each step takes its parity (the frame's block count, a
+static shape), and AEC3's block ordinal as a 0-d int32 tensor on the device
+(the JAX package's unbatched ``n0``), from which the ring positions follow,
+so that a captured CUDA graph of the step (``step_graph.PairGraph``)
+replays correctly; the AEC3 render rings are updated in place. AEC3's
+subtractor runs as plain PyTorch unless ``aec3_pair_kernel`` is true, when
+it runs on the pair kernel K6
 (``ec3.pair_kernel_from_env`` reads the JAX package's ``AEC3_PAIR_KERNEL``
 switch for a caller that wants it). Everything outside this chain raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -268,8 +272,9 @@ class ApmGeometry:
 
 @dataclass
 class ApmState:
-    """The JAX ``ApmState`` fields this chain uses, leaves (B, ...), and the
-    frame counter, a plain int uniform across the batch."""
+    """The JAX ``ApmState`` fields this chain uses, leaves (B, ...); AEC3's
+    block ordinal, a 0-d tensor; and the frame counter, a plain int. Both
+    are uniform across the batch."""
 
     capture_buffer: audio_buffer.AudioBufferState
     render_buffer: audio_buffer.AudioBufferState
@@ -286,7 +291,11 @@ class ApmState:
     # The last second of AEC3 delay estimates, newest last (stats only).
     delay_history_ms: torch.Tensor | None = None  # (B, 100) int32
     delay_history_valid: torch.Tensor | None = None  # (B, 100) bool
-    # Frames processed since init_state: AEC3's block cadence.
+    # AEC3 blocks inserted so far, () int32 on the state's device: the
+    # ordinal ``n0`` the JAX package passes to each step (2 blocks in an
+    # even frame, 3 in an odd one). Not a leaf of the JAX state.
+    aec3_block_ordinal: torch.Tensor | None = None
+    # Frames processed since init_state: the parity of AEC3's cadence.
     frame_counter: int = 0
 
 
@@ -335,6 +344,8 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
         delay_history_valid=(torch.zeros((batch, DELAY_HISTORY_FRAMES),
                                          dtype=torch.bool, device=device)
                              if has_aec else None),
+        aec3_block_ordinal=(torch.zeros((), dtype=torch.int32, device=device)
+                            if has_aec else None),
     )
 
 
@@ -435,12 +446,13 @@ class Apm(nn.Module):
         # AEC3 (:1407-1416) at this frame's parity and block ordinal.
         stats = {}
         new_aec = state.aec
+        ordinal = state.aec3_block_ordinal
         linear_out = None
         if state.aec is not None:
             parity = f % 2
-            n0 = 5 * (f // 2) + 2 * parity
             new_aec, bands, linear_out = ec3.process_frame(
-                geo.aec3, state.aec, render_bands, bands, parity, n0)
+                geo.aec3, state.aec, render_bands, bands, parity, ordinal)
+            ordinal = ordinal + (3 if parity else 2)
 
         # NS process (:1423-1425).
         if self.ns is not None:
@@ -485,6 +497,7 @@ class Apm(nn.Module):
             output_rms=output_rms,
             frame_parity=torch.remainder(state.frame_parity + 1, 2).to(
                 torch.int32),
+            aec3_block_ordinal=ordinal,
             frame_counter=f + 1,
         )
         if new_aec is not None:
@@ -527,12 +540,14 @@ def process_stream_pair(geo: ApmGeometry, state: ApmState,
 def tree_to_state(template, src, path: str = "state"):
     """Fill the port state ``template`` (for structure, dtypes and trailing
     shapes) from a JAX state pytree with numpy leaves, field by field. A
-    plain-int field of the template (the frame counter) is kept."""
+    plain-int field of the template (the frame counter) and a 0-d tensor
+    (AEC3's block ordinal, which the JAX state does not hold) are kept."""
     if template is None:
         if src is not None:
             raise ValueError(f"{path}: the port has no state here")
         return None
-    if isinstance(template, int):
+    if isinstance(template, int) or (isinstance(template, torch.Tensor)
+                                     and template.dim() == 0):
         return template
     if dataclasses.is_dataclass(template):
         out = {}
@@ -556,20 +571,33 @@ def tree_to_state(template, src, path: str = "state"):
     return torch.from_numpy(np.array(arr, copy=True)).to(template.dtype)
 
 
+def block_ordinal(frame_counter: int) -> int:
+    """AEC3 blocks inserted in the first ``frame_counter`` frames: 5 a
+    frame pair, 2 in its even frame (bench.py:94-105)."""
+    return 5 * (frame_counter // 2) + 2 * (frame_counter % 2)
+
+
 def state_from_jax(tree, geo: ApmGeometry, frame_counter: int = 0) -> ApmState:
     """The JAX package's batch-first ``ApmState`` (vmapped ``init_state``
     or step output, leaves converted to numpy) -> the port's state on the
-    CPU, leaf by leaf, after ``frame_counter`` frames. Raises if the JAX
-    state holds a component this port does not run."""
+    CPU, leaf by leaf, after ``frame_counter`` frames (which also give
+    AEC3's block ordinal). Raises if the JAX state holds a component this
+    port does not run."""
     template = init_state(geo, batch=1, device="cpu")
     state = tree_to_state(template, tree)
-    return dataclasses.replace(state, frame_counter=frame_counter)
+    ordinal = state.aec3_block_ordinal
+    if ordinal is not None:
+        ordinal = torch.tensor(block_ordinal(frame_counter),
+                               dtype=torch.int32)
+    return dataclasses.replace(state, frame_counter=frame_counter,
+                               aec3_block_ordinal=ordinal)
 
 
 def state_to_numpy(state) -> dict:
     """Flatten a state to {dotted path: numpy array}, copies (the AEC3 rings
-    change in place); the paths are the JAX pytree's attribute paths (the
-    frame counter is not a leaf)."""
+    change in place); the paths are the JAX pytree's attribute paths, and
+    AEC3's block ordinal is the 0-d leaf ``aec3_block_ordinal`` (the frame
+    counter is not a leaf)."""
     out = {}
 
     def walk(node, path):

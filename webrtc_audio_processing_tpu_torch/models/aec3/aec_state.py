@@ -911,7 +911,7 @@ def update(config: EchoCanceller3Config, state: AecStateState,
     if config.echo_audibility.use_stationarity_properties:
         newest = rb.blocks_span(
             geo, view,
-            torch.full_like(min_delay, rb.b_write_index(geo, view.n)), 1)
+            torch.zeros_like(min_delay) + rb.b_write_index(geo, view.n), 1)
         newest_band0 = rb.blocks_rows(geo, newest)[:, 0, 0]  # (B, 64, C)
         audibility = ea.update(
             audibility, geo, view, rb.s_read_index(geo, view.state, view.n),

@@ -106,13 +106,13 @@ def _update_stationarity_flags(st: StationarityState, window, average_reverb):
     return st.replace(flags=smooth, hangovers=hang.to(torch.int32))
 
 
-def update(state: EchoAudibilityState, geo, view, s_read, s_write: int,
+def update(state: EchoAudibilityState, geo, view, s_read, s_write,
            newest_block_band0, average_reverb, delay_blocks, headroom,
            external_delay_seen, use_render_stationarity_at_init: bool):
     """EchoAudibility::Update (echo_audibility.cc:26-37), one block. One
     render spectrum is inserted per capture block, so the write-pointer
-    walk is the newest spectrum (ring position s_write). newest_block_band0:
-    (B, 64, C)."""
+    walk is the newest spectrum (ring position s_write, a 0-d tensor).
+    newest_block_band0: (B, 64, C)."""
     from webrtc_audio_processing_tpu_torch.models.aec3 import (
         render_buffer as rb,
     )
@@ -121,7 +121,7 @@ def update(state: EchoAudibilityState, geo, view, s_read, s_write: int,
     too_low = torch.amax(torch.abs(newest_block_band0), dim=(1, 2)) < 10.0
     non_zero = state.non_zero_render_seen | (~external_delay_seen & ~too_low)
 
-    start_w = torch.full_like(s_read, s_write)
+    start_w = torch.zeros_like(s_read) + s_write
     newest = torch.mean(
         rb.sf_spectrum(geo, rb.sf_span(geo, view, start_w, 1))[:, 0], dim=1)
     st = tree_where(non_zero, _noise_update(st, newest), st)

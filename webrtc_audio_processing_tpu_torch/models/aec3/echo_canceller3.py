@@ -4,8 +4,9 @@ Port of ``webrtc_audio_processing_tpu/models/aec3/echo_canceller3.py``
 (reference: aec3/echo_canceller3.cc, aec3/block_processor.cc,
 aec3/frame_blocker.cc, aec3/block_framer.cc). One step takes a paired
 render and capture frame; the 2-or-3 blocks-per-frame cadence is the static
-frame parity, and the ring write positions follow the block ordinal ``n0``,
-both plain Python ints uniform across the batch.
+frame parity, a Python int (it fixes the frame's block count, a static
+shape); the ring write positions follow the block ordinal ``n0``, a 0-d
+int32 tensor on the state's device, both uniform across the batch.
 
 Only the pair-phase capture path (``pair_phase=True``) is ported. Its
 subtractor is the plain ``subtractor.process_pair`` by default, or the pair
@@ -179,7 +180,7 @@ def _frame_from_blocks(blocks, carry, parity: int):
 
 
 def _delay_phase_block(geo: Aec3Geometry, state: EchoCanceller3State,
-                       capture_block, n: int):
+                       capture_block, n: torch.Tensor):
     """The delay-stack part of BlockProcessorImpl::ProcessCapture
     (block_processor.cc:84-174) for one capture block (B, bands, 64, C):
     first-capture reset, render overrun flush, buffer events, delay
@@ -224,16 +225,17 @@ def _detect_saturation(y):
 
 
 def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
-                  render_frame, capture_frame, parity: int, n0: int):
+                  render_frame, capture_frame, parity: int,
+                  n0: torch.Tensor):
     """One paired 10 ms frame through the AEC3 block pipeline
     (EchoCanceller3::ProcessCapture, echo_canceller3.cc:876-939, with the
     render queue collapsed into the same step).
 
     render_frame (B, bands, 160, C_ren), capture_frame (B, bands, 160,
-    C_cap) in floatS16; ``parity`` the frame's parity and ``n0`` the number
-    of blocks inserted before it, both Python ints. The render rings are
-    updated in place. Returns (state, out_frame (B, bands, 160, C_cap),
-    linear_frame (B, 160, C_cap))."""
+    C_cap) in floatS16; ``parity`` the frame's parity (a Python int) and
+    ``n0`` the number of blocks inserted before it (a 0-d int32 tensor).
+    The render rings are updated in place. Returns (state, out_frame (B,
+    bands, 160, C_cap), linear_frame (B, 160, C_cap))."""
     cfg = geo.config
     # AnalyzeCapture saturation scan (echo_canceller3.cc:862-874).
     state = state.replace(

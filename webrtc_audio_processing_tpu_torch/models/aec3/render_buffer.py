@@ -9,9 +9,11 @@ The ring layout is the JAX package's, so that ``apm.state_from_jax`` maps
 it leaf by leaf and K2 keeps its contract:
 
 * the write positions are functions of the global insert ordinal ``n``
-  alone, a plain Python int uniform across the batch, so every write lands
-  at one row for all streams; per stream only the read-side distances
-  ``b_delay`` and ``lr_latency`` are kept;
+  alone, a 0-d int32 tensor on the state's device uniform across the batch
+  (the JAX package's unbatched traced scalar), so every write lands at one
+  row for all streams and no position is a Python int (a captured CUDA
+  graph replays with the ordinal it finds on the device); per stream only
+  the read-side distances ``b_delay`` and ``lr_latency`` are kept;
 * the rings are flat rows ``(L + pad + RING_SLACK, F)``: rows [L, L + pad)
   mirror rows [0, pad), so every window read is one contiguous span (K2,
   ``ops/cuda_span.py``); the FFT planes and the spectrum share one row,
@@ -265,30 +267,32 @@ class RenderDelayBufferState:
 #   b_write(n)  =  n mod L,  s_write(n) = -n mod L,
 #   lr_write(n) = -n * sub mod DS.
 # Read positions: b_read = b_write - b_delay, s_read = s_write + b_delay,
-# lr_read = lr_write + lr_latency (all mod their ring length).
+# lr_read = lr_write + lr_latency (all mod their ring length). ``n`` is the
+# 0-d int32 ordinal tensor; every position is a tensor on its device.
 
 
-def b_write_index(geo: BufferGeometry, n: int) -> int:
-    return n % geo.num_blocks
+def b_write_index(geo: BufferGeometry, n: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(n, geo.num_blocks)
 
 
-def s_write_index(geo: BufferGeometry, n: int) -> int:
-    return (-n) % geo.num_blocks
+def s_write_index(geo: BufferGeometry, n: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(-n, geo.num_blocks)
 
 
-def lr_write_index(geo: BufferGeometry, n: int) -> int:
-    return (-n * geo.sub_block_size) % geo.ds_size
+def lr_write_index(geo: BufferGeometry, n: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(-n * geo.sub_block_size, geo.ds_size)
 
 
-def s_read_index(geo: BufferGeometry, state, n: int) -> torch.Tensor:
+def s_read_index(geo: BufferGeometry, state, n: torch.Tensor) -> torch.Tensor:
     return torch.remainder(state.b_delay - n, geo.num_blocks)
 
 
-def b_read_index(geo: BufferGeometry, state, n: int) -> torch.Tensor:
+def b_read_index(geo: BufferGeometry, state, n: torch.Tensor) -> torch.Tensor:
     return torch.remainder(n - state.b_delay, geo.num_blocks)
 
 
-def lr_read_index(geo: BufferGeometry, state, n: int) -> torch.Tensor:
+def lr_read_index(geo: BufferGeometry, state,
+                  n: torch.Tensor) -> torch.Tensor:
     return torch.remainder(state.lr_latency - n * geo.sub_block_size,
                            geo.ds_size)
 
@@ -391,17 +395,27 @@ def alignment_mix(config_mixing, mixer: AlignmentMixerState,
     return new_mixer, take(band0, selected)
 
 
+def write_lowrate(geo: BufferGeometry, lowrate: torch.Tensor,
+                  sub_block: torch.Tensor, n: torch.Tensor) -> None:
+    """Write ``sub_block`` (B, sub) at samples [lr_write(n), + sub) of the
+    low-rate ring (B, DS), in place. DS is a multiple of sub, so the span
+    never wraps."""
+    idx = lr_write_index(geo, n) + torch.arange(
+        geo.sub_block_size, device=lowrate.device)
+    lowrate.index_copy_(1, idx, sub_block)
+
+
 def insert(geo: BufferGeometry, config: EchoCanceller3Config,
-           state: RenderDelayBufferState, block: torch.Tensor, n: int,
-           sf_slot: int):
+           state: RenderDelayBufferState, block: torch.Tensor,
+           n: torch.Tensor, sf_slot: int):
     """RenderDelayBufferImpl::Insert (render_delay_buffer.cc:189-231).
 
-    block: (B, bands, 64, C); ``n`` is the post-increment insert ordinal
-    (the first insert ever passes n = 1). ``sf_slot`` in [0, 5) is the
-    block's position in its frame pair (even frame 0-1, odd frame 2-4): the
-    block, FFT and spectrum rows are staged there and reach the rings at
-    ``flush_sf_pending``. The low-rate ring is written in place. Returns
-    (state, event (B,) int32)."""
+    block: (B, bands, 64, C); ``n`` is the post-increment insert ordinal, a
+    0-d int32 tensor (the first insert ever passes n = 1). ``sf_slot`` in
+    [0, 5) is the block's position in its frame pair (even frame 0-1, odd
+    frame 2-4): the block, FFT and spectrum rows are staged there and reach
+    the rings at ``flush_sf_pending``. The low-rate ring is written in
+    place. Returns (state, event (B,) int32)."""
     if not 0 <= sf_slot < PAIR_BLOCKS:
         raise ValueError(f"sf_slot {sf_slot} outside [0, {PAIR_BLOCKS})")
     B = block.shape[0]
@@ -432,8 +446,7 @@ def insert(geo: BufferGeometry, config: EchoCanceller3Config,
     aa, nr, ds = decimate(geo.down_sampling_factor, state.decimator_aa,
                           state.decimator_nr, mono)
     # The decimated sub-block is stored time-reversed (:389).
-    w = lr_write_index(geo, n)
-    state.lowrate[:, w: w + geo.sub_block_size] = torch.flip(ds, dims=[1])
+    write_lowrate(geo, state.lowrate, torch.flip(ds, dims=[1]), n)
 
     X = aec3_fft.padded_fft(band0, state.prev_band0)  # (B, C, 65)
     f, s = geo.fft_row_f, geo.spec_row_f
@@ -466,31 +479,40 @@ def insert(geo: BufferGeometry, config: EchoCanceller3Config,
 
 
 def _ring_write_group(geo: BufferGeometry, buf: torch.Tensor,
-                      group: torch.Tensor, start: int) -> None:
+                      group: torch.Tensor, start: torch.Tensor) -> None:
     """Write the K rows ``group`` (B, K, F) at ring rows [start, start + K)
-    in place, with the JAX package's mirror upkeep (``ring_write_group``):
-    the second write copies the group into the mirror (start < pad), copies
-    a wrapped tail back to rows [0, t), or lands in the scratch rows."""
+    in place, with the JAX package's mirror upkeep (``ring_write_group``),
+    branch-free on the 0-d tensor ``start``: the first write goes to rows
+    start + [0, K); the second to the mirror rows start + L + [0, K) when
+    start < pad, else to rows [0, K) keeping only the wrapped tail [0, t)
+    when t = start + K - L > 0, else to the scratch rows L + pad + [0, K).
+    Rows the second write does not keep are written back as they are."""
     K = group.shape[1]
     L, pad = geo.num_blocks, geo.pad
     if K > pad:
         raise ValueError(f"group of {K} rows exceeds the mirror ({pad})")
-    buf[:, start: start + K] = group
-    t = max(start + K - L, 0)
-    if start < pad:
-        buf[:, start + L: start + L + K] = group
-    elif t > 0:
-        buf[:, 0:t] = group[:, K - t:]
-    else:
-        buf[:, L + pad: L + pad + K] = group
+    i = torch.arange(K, device=buf.device)
+    buf.index_copy_(1, start + i, group)
+    t = torch.clamp(start + K - L, min=0)
+    mirror = start < pad
+    wrap = t > 0
+    rows = torch.where(mirror, start + L,
+                       torch.where(wrap, 0, L + pad)) + i
+    # Row i of a wrapped tail takes group row (i - t) mod K.
+    sel = group.index_select(1, torch.where(mirror, i,
+                                            torch.remainder(i - t, K)))
+    keep = mirror | (i < t) | ~wrap
+    buf.index_copy_(1, rows, torch.where(keep[:, None], sel,
+                                         buf.index_select(1, rows)))
 
 
 def flush_sf_pending(geo: BufferGeometry, state: RenderDelayBufferState,
-                     n_last: int) -> RenderDelayBufferState:
+                     n_last: torch.Tensor) -> RenderDelayBufferState:
     """Write the staged rows of the previous frame pair into the rings, in
-    place. n_last is the insert ordinal of the last staged block; the
-    pair's inserts were n_last - 4 .. n_last. The first flush writes the
-    zero staging rows into the zero rings, a no-op by value."""
+    place. n_last (a 0-d int32 tensor) is the insert ordinal of the last
+    staged block; the pair's inserts were n_last - 4 .. n_last. The first
+    flush writes the zero staging rows into the zero rings, a no-op by
+    value."""
     # Slot s lives at sf row s_write(n_last) + 4 - s: ascending rows hold
     # descending slots.
     _ring_write_group(geo, state.sf, torch.flip(state.sf_pending, dims=[1]),
@@ -579,12 +601,12 @@ def align_from_delay(geo: BufferGeometry, config: EchoCanceller3Config,
 
 class RenderView(NamedTuple):
     """A RenderBuffer read handle (render_buffer.h): the buffer state and
-    the uniform insert ordinal ``n`` of its last insert. ``pending_count``
-    staged rows (ordinals n - pending_count + 1 .. n) live in the staging
-    buffers rather than the rings."""
+    the uniform insert ordinal ``n`` of its last insert (a 0-d int32
+    tensor). ``pending_count`` staged rows (ordinals n - pending_count + 1
+    .. n) live in the staging buffers rather than the rings."""
 
     state: RenderDelayBufferState
-    n: int
+    n: torch.Tensor
     pending_count: int = 0
 
 
