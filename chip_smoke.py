@@ -10,10 +10,12 @@ exits non-zero without a result line:
    csrc`` with nvcc (sm_90a, one nvcc per source, all at once) and loaded
    with ctypes.
 3. kernels: K1 (biquad cascade, at the HPF's, the AEC3 decimators' and the
-   PostFilter's shapes), K2 (ring span read), K3 (matched-filter NLMS bank;
-   the specialised form at the path's taps 512, sub 16, the general form at
-   taps 256, sub 8), K4 (pre-echo errors; taps 512, acc_rate 4, and the
-   general form at taps 256, acc_rate 8), K5 (window read) and K6 (the
+   PostFilter's shapes, and at the main path's: its HPF, its QMF branches
+   in the all-pass form, its decimators), K2 (ring span read), K3
+   (matched-filter NLMS bank; the specialised form at the path's taps 512,
+   sub 16, the general form at taps 256, sub 8), K4 (pre-echo errors;
+   taps 512, acc_rate 4, and the general form at taps 256, acc_rate 8), K5
+   (window read); K2-K5 also at the main path's B = 4096; and K6 (the
    subtractor pair kernel, at 48 kHz stereo for 2 and 3 blocks with and
    without events, and at 16 kHz mono; both geometries also with render
    spectra below the gains' noise gate; 48 kHz stereo also with window
@@ -25,9 +27,15 @@ exits non-zero without a result line:
    replayed: the kernel alone), the device kernels one call runs, the twin's
    call time and, for K2 and K5, the same two times of the one PyTorch call
    that computes the same function (``torch.gather`` on a prebuilt index).
-4. Three AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
-   and AGC2 (the bench's configurations, bench.py:30-78), each 300 frames
-   (3 s) of an echo scene with the last 100 frames timed:
+4. Four AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
+   and AGC2, each 300 frames (3 s) of an echo scene with the last 100
+   frames timed:
+   - ``default_48k``, the main path: B = 4096 streams of 48 kHz stereo
+     through ``Config()``'s own ``Pipeline()`` (internal rate capped at
+     32 kHz, multichannel off): the AudioBuffer resamples 48 -> 32 kHz
+     and back, the QMF splits two bands (K1), capture is processed mono
+     and the render downmixed, the plain subtractor, no PostFilter;
+   and the bench's configurations (bench.py:30-78):
    - ``aec3_path``: B = 2048 streams of 48 kHz stereo, the plain
      subtractor (the default);
    - ``pair_kernel_48k``: the same with the subtractor on K6;
@@ -65,8 +73,10 @@ exits non-zero without a result line:
    with the subtractor ``AEC3_PAIR_KERNEL`` selects: the line the twin
    prints for those batches.
 
-Before the last line the kernel table as JSON, then the result JSON. The
-script imports no JAX.
+Before the last line the kernel table as JSON (each kernel's
+``launches`` from the main path, K6's from ``pair_kernel_48k``, and
+``launches_by_path`` from every path), then the result JSON. The script
+imports no JAX.
 
     python3 chip_smoke.py --kernels-only
 
@@ -76,6 +86,7 @@ runs phases 1-3 alone and prints no result line.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -145,7 +156,10 @@ class Aec3Path:
 # The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 40 and
 # 30 frames keep the script near half its 1200 s limit on a slow host. They
 # are spread over frames 76-195, before the profiled and timed frames.
+# ``default_48k`` is the main path: the APM's own default pipeline.
 AEC3_PATHS = (
+    Aec3Path("default_48k", "default_48k", 4096, False, (0, 4095),
+             range(76, 196, 4)),
     Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
              range(76, 196, 3)),
     Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
@@ -271,7 +285,7 @@ def _max_rel(got, want):
                  / (want.abs().max() + 1e-30))
 
 
-def _k1_case(dev, rng, coeffs_np, T, M):
+def _k1_case(dev, rng, coeffs_np, T, M, allpass=False):
     from webrtc_audio_processing_tpu_torch.ops import cuda_biquad
 
     K = coeffs_np.shape[0]
@@ -280,8 +294,8 @@ def _k1_case(dev, rng, coeffs_np, T, M):
         (rng.standard_normal((T, M)) * 3000).astype(np.float32)).to(dev)
     st = torch.from_numpy(
         (rng.standard_normal((4 * K, M)) * 1000).astype(np.float32)).to(dev)
-    st_k, y_k = cuda_biquad.cascade_cuda(coeffs, st, x_t)
-    st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x_t)
+    st_k, y_k = cuda_biquad.cascade_cuda(coeffs, st, x_t, allpass)
+    st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x_t, allpass)
     torch.cuda.synchronize()
     err = max(float((y_k - y_p).abs().max()),
               float((st_k - st_p).abs().max()))
@@ -299,16 +313,18 @@ def _k1_case(dev, rng, coeffs_np, T, M):
                           chain_s=(2 * T + 4 * K) * DEP_OP_S)
     return dict(
         max_abs_err=err,
-        **_times(lambda: cuda_biquad.cascade_cuda(coeffs, st, x_t), 50, 50),
-        plain_ms=_event_ms(lambda: cuda_biquad.cascade_plain(coeffs, st,
-                                                             x_t), 2),
-        bound_ms=bound, bound_by=by, shape=f"K={K} T={T} M={M}",
+        **_times(lambda: cuda_biquad.cascade_cuda(coeffs, st, x_t, allpass),
+                 50, 50),
+        plain_ms=_event_ms(lambda: cuda_biquad.cascade_plain(
+            coeffs, st, x_t, allpass), 2),
+        bound_ms=bound, bound_by=by,
+        shape=f"K={K} T={T} M={M}" + (" all-pass" if allpass else ""),
     )
 
 
-def _k3_case(dev, rng, taps, sub):
-    """K3 against its twin at (taps, sub) on the matched filter's ring,
-    timed; returns the row's fields and the inputs K4 reuses."""
+def _k3_case(dev, rng, taps, sub, B=B):
+    """K3 against its twin at (taps, sub) on the matched filter's ring for
+    B streams, timed; returns the row's fields and the inputs K4 reuses."""
     from webrtc_audio_processing_tpu_torch.ops import cuda_matched_filter
 
     f32, N, DS = np.float32, 5, 2448
@@ -359,7 +375,7 @@ def _k4_case(dev, seg, h0, al, y, rate):
     """K4 against its twin on the given inputs, timed."""
     from webrtc_audio_processing_tpu_torch.ops import cuda_pre_echo
 
-    taps, sub = h0.shape[1], y.shape[1]
+    B, taps, sub = h0.shape[0], h0.shape[1], y.shape[1]
     pe_k = cuda_pre_echo.pre_echo_cuda(seg, h0, al, y, rate)
     pe_p = cuda_pre_echo.pre_echo_plain(seg, h0, al, y, rate)
     torch.cuda.synchronize()
@@ -395,20 +411,37 @@ def kernels_phase(dev):
         biquad,
         cuda_span,
         cuda_window,
+        qmf,
     )
 
     rng = np.random.default_rng(SEED)
     rows = []
 
-    # K1 at the HPF's shape (the row), the decimators' and the PostFilter's.
-    k1 = _k1_case(dev, rng,
-                  biquad.pack_coeffs(*biquad.HPF_COEFFS[48000]), 480, 2 * B)
+    # K1 at the 48 kHz stereo HPF's shape (the row), the decimators' and the
+    # PostFilter's; then at ``default_48k``'s (B = 4096): its HPF (the 48 kHz
+    # table on both channels at 32 kHz), its QMF branches (the all-pass rows
+    # over the render's and the narrowed capture's B lanes, and over the
+    # capture's 2 B lanes before the narrowing) and its decimators.
+    hpf48 = biquad.pack_coeffs(*biquad.HPF_COEFFS[48000])
+    k1 = _k1_case(dev, rng, hpf48, 480, 2 * B)
     aa, nr = render_buffer.decimator_coeffs()
     others = {
         "decimator": _k1_case(dev, rng, np.concatenate([aa, nr]), 64, B),
         "post_filter": _k1_case(dev, rng, biquad.pack_coeffs(
             post_filter.COEFFS_B_48K, post_filter.COEFFS_A_48K), 480, 2 * B),
     }
+    main_rng = np.random.default_rng(SEED + 106)
+    others.update({
+        "default_48k_hpf": _k1_case(dev, main_rng, hpf48, 320, 2 * 4096),
+        "default_48k_qmf": _k1_case(
+            dev, main_rng, qmf.allpass_rows(qmf.ALLPASS_COEF_1), 160, 4096,
+            allpass=True),
+        "default_48k_qmf_capture_analysis": _k1_case(
+            dev, main_rng, qmf.allpass_rows(qmf.ALLPASS_COEF_2), 160,
+            2 * 4096, allpass=True),
+        "default_48k_decimator": _k1_case(
+            dev, main_rng, np.concatenate([aa, nr]), 64, 4096),
+    })
     rows.append(dict(
         name="biquad_cascade", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/biquad.cu",
@@ -419,8 +452,9 @@ def kernels_phase(dev):
     ))
 
     # K2 at the echo remover's chain reads: sf rows (W = 19, F = 512) in the
-    # row, the blocks rows (W = 15, F = 384) beside it.
-    def k2_case(W, F):
+    # row, the blocks rows (W = 15, F = 384) beside it, and default_48k's
+    # (one render channel, two bands, B = 4096: F = 256 and 128).
+    def k2_case(W, F, B=B, rng=rng):
         ring = torch.from_numpy(rng.standard_normal(
             (B, 200, F)).astype(np.float32)).to(dev)
         start = torch.from_numpy(
@@ -451,11 +485,20 @@ def kernels_phase(dev):
         source="webrtc_audio_processing_tpu_torch/csrc/span.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_span.py:47",
         library_note="torch.gather with a prebuilt index",
-        other_shapes={"blocks": k2_case(15, 384)}, **k2))
+        other_shapes={
+            "blocks": k2_case(15, 384),
+            "default_48k_sf": k2_case(19, 256, 4096,
+                                      np.random.default_rng(SEED + 103)),
+            "default_48k_blocks": k2_case(15, 128, 4096,
+                                          np.random.default_rng(SEED + 104))},
+        **k2))
 
     # K3 at the matched filter's shapes (5 filters of 512 taps, DS = 2448,
-    # sub 16: the specialised form), and the runtime-sub form beside it.
+    # sub 16: the specialised form), the runtime-sub form beside it, and
+    # default_48k's B = 4096.
     k3, (low, h0, y, got) = _k3_case(dev, rng, 512, 16)
+    k3_main, (_, h0_m, y_m, got_m) = _k3_case(
+        dev, np.random.default_rng(SEED + 102), 512, 16, 4096)
     rows.append(dict(
         name="matched_filter_nlms", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/matched_filter.cu",
@@ -463,12 +506,16 @@ def kernels_phase(dev):
         library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call runs a per-sample NLMS",
         other_shapes={"taps256_sub8": _k3_case(
-            dev, np.random.default_rng(SEED + 100), 256, 8)[0]}, **k3))
+            dev, np.random.default_rng(SEED + 100), 256, 8)[0],
+            "default_48k": k3_main}, **k3))
 
-    # K4 at the winner filter's shapes (the specialised form), and the
-    # general form beside it.
-    k4 = _k4_case(dev, got[4][:, 0].contiguous(), h0[:, 0].contiguous(),
-                  (got[1][:, 0] * 1.0).contiguous(), y, 4)
+    # K4 at the winner filter's shapes (the specialised form), the general
+    # form and default_48k's B = 4096 beside it.
+    def winner(h0, y, got):
+        return (got[4][:, 0].contiguous(), h0[:, 0].contiguous(),
+                (got[1][:, 0] * 1.0).contiguous(), y)
+
+    k4 = _k4_case(dev, *winner(h0, y, got), 4)
     other = np.random.default_rng(SEED + 101)
     k4_256 = _k4_case(dev, *(torch.from_numpy(
         (other.standard_normal(shape) * scale).astype(np.float32)).to(dev)
@@ -480,34 +527,44 @@ def kernels_phase(dev):
         replaces="webrtc_audio_processing_tpu/ops/pallas_pre_echo.py:59",
         library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call computes the chunked errors",
-        other_shapes={"taps256_rate8": k4_256}, **k4))
+        other_shapes={"taps256_rate8": k4_256, "default_48k": _k4_case(
+            dev, *winner(h0_m, y_m, got_m), 4)}, **k4))
 
-    # K5 at the RNN-VAD's shapes: B = 2048, L = 864, W = 480, with the
-    # int64 starts the pitch search gives it (rnn_vad/features.py).
-    buf = torch.from_numpy(
-        rng.standard_normal((B, 864)).astype(np.float32)).to(dev)
-    start = torch.from_numpy(rng.integers(0, 385, B)).to(dev)
-    w_k = cuda_window.take_windows_cuda(buf, start, 480)
-    w_p = cuda_window.take_windows_plain(buf, start, 480)
-    torch.cuda.synchronize()
-    err = float((w_k - w_p).abs().max())
-    if not torch.equal(w_k, w_p):
-        raise AssertionError(f"K5 differs from its twin: max |diff| {err}")
-    idx = start.long()[:, None] + torch.arange(480, device=dev)
-    bound, by = _bound_ms(2 * B * 480 * 4)
+    # K5 at the RNN-VAD's shapes: B = 2048 and default_48k's 4096, L = 864,
+    # W = 480, with the int64 starts the pitch search gives it
+    # (rnn_vad/features.py).
+    def k5_case(B=B, rng=rng):
+        buf = torch.from_numpy(
+            rng.standard_normal((B, 864)).astype(np.float32)).to(dev)
+        start = torch.from_numpy(rng.integers(0, 385, B)).to(dev)
+        w_k = cuda_window.take_windows_cuda(buf, start, 480)
+        w_p = cuda_window.take_windows_plain(buf, start, 480)
+        torch.cuda.synchronize()
+        err = float((w_k - w_p).abs().max())
+        if not torch.equal(w_k, w_p):
+            raise AssertionError(f"K5 differs from its twin: max |diff| "
+                                 f"{err}")
+        idx = start.long()[:, None] + torch.arange(480, device=dev)
+        bound, by = _bound_ms(2 * B * 480 * 4)
+        return dict(
+            max_abs_err=err,
+            **_times(lambda: cuda_window.take_windows_cuda(buf, start, 480),
+                     200, 50),
+            plain_ms=_event_ms(
+                lambda: cuda_window.take_windows_plain(buf, start, 480), 200),
+            library_ms=_event_ms(lambda: torch.gather(buf, 1, idx), 200),
+            library_device_ms=_graph_ms(lambda: torch.gather(buf, 1, idx),
+                                        50),
+            bound_ms=bound, bound_by=by, shape=f"B={B} L=864 W=480")
+
+    k5 = k5_case()
     rows.append(dict(
         name="take_windows", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/window.cu",
         replaces="webrtc_audio_processing_tpu/ops/pallas_window.py:21",
-        max_abs_err=err,
-        **_times(lambda: cuda_window.take_windows_cuda(buf, start, 480),
-                 200, 50),
-        plain_ms=_event_ms(
-            lambda: cuda_window.take_windows_plain(buf, start, 480), 200),
-        library_ms=_event_ms(lambda: torch.gather(buf, 1, idx), 200),
-        library_device_ms=_graph_ms(lambda: torch.gather(buf, 1, idx), 50),
         library_note="torch.gather with a prebuilt index",
-        bound_ms=bound, bound_by=by, shape=f"B={B} L=864 W=480"))
+        other_shapes={"default_48k": k5_case(
+            4096, np.random.default_rng(SEED + 105))}, **k5))
 
     # K6 at the pair-kernel paths' shapes; the row is 48 kHz stereo with
     # three blocks, the frame pair's odd frame.
@@ -781,11 +838,13 @@ def echo_scene(n_frames, seed, streams, rate=48000, channels=2):
     channels) float32 in [-1, 1], n = rate / 100 * n_frames."""
     n = n_frames * rate // 100
     t = (np.arange(n) / float(rate)).astype(np.float32)
+    streams = list(streams)
     render = np.empty((len(streams), n, channels), np.float32)
     capture = np.empty((len(streams), n, channels), np.float32)
     paths = ((0.4, 0.15, 5), (0.35, 0.12, 9))[:channels]
-    for i, s in enumerate(streams):
-        rng = np.random.default_rng([seed, s])
+
+    def one(i):
+        rng = np.random.default_rng([seed, streams[i]])
         p1, p2 = rng.uniform(0, 2 * np.pi, 2)
         burst = (np.sin(2 * np.pi * 2.3 * t + p1) > -0.2).astype(np.float32)
         level = 0.15 + 0.85 * np.abs(np.sin(2 * np.pi * 0.4 * t + p2))
@@ -795,6 +854,11 @@ def echo_scene(n_frames, seed, streams, rate=48000, channels=2):
             capture[i, :, ch] = direct * far + late * np.roll(far, lag)
         capture[i] += 0.01 * rng.standard_normal((n, channels),
                                                  dtype=np.float32)
+
+    # Streams in threads (numpy's fills and ufuncs release the GIL): the
+    # main path's 4096 streams take ~70 s of the host one by one.
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(len(streams))))
     return render, capture
 
 
@@ -881,15 +945,23 @@ def _sync_count(fn):
 
 # mode: (rate, channels, maximum internal rate), bench.py:30-34.
 BENCH_MODES = {"48k_stereo": (48000, 2, 48000), "16k_mono": (16000, 1, 32000)}
+# The bench's modes and the APM's own default pipeline (``Pipeline()``:
+# internal rate capped at 32 kHz, multichannel capture and render off) at
+# 48 kHz stereo: processed mono at 32 kHz in two bands, resampled in and
+# out of the AudioBuffer.
+MODES = {**BENCH_MODES, "default_48k": (48000, 2, 32000)}
 
 
 def aec3_config(cfg_mod, mode="48k_stereo"):
-    """``bench.build_step``'s configuration (bench.py:53-78) for ``mode``."""
-    _, channels, internal = BENCH_MODES[mode]
+    """``bench.build_step``'s configuration (bench.py:53-78) for ``mode``;
+    ``default_48k`` keeps ``Config()``'s own ``Pipeline()``."""
+    _, channels, internal = MODES[mode]
+    pipeline = (cfg_mod.Pipeline() if mode == "default_48k" else
+                cfg_mod.Pipeline(multi_channel_capture=channels > 1,
+                                 multi_channel_render=channels > 1,
+                                 maximum_internal_processing_rate=internal))
     return cfg_mod.Config().replace(
-        pipeline=cfg_mod.Pipeline(multi_channel_capture=channels > 1,
-                                  multi_channel_render=channels > 1,
-                                  maximum_internal_processing_rate=internal),
+        pipeline=pipeline,
         high_pass_filter=cfg_mod.HighPassFilter(enabled=True),
         echo_canceller=cfg_mod.EchoCanceller(enabled=True),
         noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
@@ -907,38 +979,58 @@ def aec3_geometry(mode, pair_kernel=None):
 
     if pair_kernel is None:
         pair_kernel = echo_canceller3.pair_kernel_from_env()
-    rate, channels, _ = BENCH_MODES[mode]
+    rate, channels, _ = MODES[mode]
     return apm.ApmGeometry.create(
         aec3_config(cfg_mod, mode), rate, channels, render_input_rate=rate,
-        num_render_channels=channels, aec3_stereo_content=channels > 1,
+        num_render_channels=channels,
+        aec3_stereo_content=mode != "default_48k" and channels > 1,
         aec3_pair_kernel=pair_kernel)
 
 
-def expected_aec3_launches(n_frames, rate=48000, pair_kernel=False):
-    """Per frame pair: K1 2 HPF + 2 PostFilter (48 kHz only) + 5 render and
-    5 capture decimations (one launch for both cascades); K2 the echo
-    remover's four chain reads per frame; K3 and K4 one per capture block;
-    K5 one per frame; K6 one per frame on the pair-kernel path."""
+def expected_aec3_launches(geo, n_frames):
+    """The launches ``n_frames`` frames of an AEC3 geometry imply. K1 per
+    frame: the HPF (full band or band 0) once, the PostFilter once (48 kHz
+    processing only), each QMF direction twice (one cascade a branch:
+    capture analysis and synthesis at 32 kHz, render analysis and
+    synthesis when the render is processed at 32 kHz), and per frame pair 5
+    render and 5 capture decimations (one launch for both cascades); K2
+    the echo remover's four chain reads per frame; K3 and K4 one per
+    capture block; K5 one per frame (AGC2's VAD); K6 one per frame on the
+    pair-kernel path."""
     pairs, odd = divmod(n_frames, 2)
     blocks = 5 * pairs + 2 * odd
-    per_frame = 2 if rate == 48000 else 1
+    qmf_directions = 2 * ((geo.capture_processing_rate == 32000)
+                          + (geo.render_processing_rate == 32000))
+    per_frame = (geo.hpf_enabled + geo.post_filter_enabled
+                 + 2 * qmf_directions)
     return {"biquad_cascade": per_frame * n_frames + 2 * blocks,
             "span_gather": 4 * n_frames,
             "matched_filter_nlms": blocks, "pre_echo_inst": blocks,
-            "take_windows": n_frames,
-            "subtractor_pair": n_frames if pair_kernel else 0}
+            "take_windows": n_frames if geo.config.gain_controller2.enabled
+            else 0,
+            "subtractor_pair": n_frames if geo.aec3.pair_kernel else 0}
 
 
 @functools.lru_cache(maxsize=1)
-def _scene(mode, batch):
-    rate, channels, _ = BENCH_MODES[mode]
+def _scene_streams(rate, channels, batch):
     return echo_scene(AEC3_FRAMES, SEED, range(batch), rate, channels)
+
+
+def _scene(mode, batch):
+    """The scene's first ``batch`` streams. The paths at one rate and
+    channel count share one scene of the most streams any of them runs
+    (a stream's signals depend only on its index), made once."""
+    rate, channels, _ = MODES[mode]
+    most = max(p.batch for p in AEC3_PATHS
+               if MODES[p.mode][:2] == (rate, channels))
+    render, capture = _scene_streams(rate, channels, max(most, batch))
+    return render[:batch], capture[:batch]
 
 
 def aec3_path_phase(dev, smi, path):
     from webrtc_audio_processing_tpu_torch import apm, bench
 
-    rate, channels, _ = BENCH_MODES[path.mode]
+    rate, channels, _ = MODES[path.mode]
     frame, Bp = rate // 100, path.batch
     t0 = time.perf_counter()
     render, capture = _scene(path.mode, Bp)
@@ -997,7 +1089,7 @@ def aec3_path_phase(dev, smi, path):
     dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
     run_s = time.perf_counter() - t_run
     launches = _counts()
-    want = expected_aec3_launches(AEC3_FRAMES, rate, path.pair_kernel)
+    want = expected_aec3_launches(geo, AEC3_FRAMES)
     if launches != want:
         raise AssertionError(f"{path.name} launches {launches}, expected "
                              f"{want}")
@@ -1039,7 +1131,7 @@ def aec3_cross_check_phase(path, geo, snapshots, render, capture, gpu_out,
                            gpu_delay):
     from webrtc_audio_processing_tpu_torch import apm
 
-    frame = BENCH_MODES[path.mode][0] // 100
+    frame = MODES[path.mode][0] // 100
     frames = path.cross
     free_frames = range(frames[0], frames[0] + FREE_FRAMES)
     t0 = time.perf_counter()
@@ -1099,7 +1191,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
     launches: captured per pair x replays."""
     from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
 
-    rate, channels, _ = BENCH_MODES[path.mode]
+    rate, channels, _ = MODES[path.mode]
     frame, Bp = rate // 100, path.batch
     render, capture = _scene(path.mode, Bp)
     ren_dev = torch.from_numpy(render).to(dev)
@@ -1114,7 +1206,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
     graph.capture()
     captured = _counts()
     pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
-    want = expected_aec3_launches(2, rate, path.pair_kernel)
+    want = expected_aec3_launches(geo, 2)
     if captured != want:
         raise AssertionError(f"{path.name} captured {captured} launches a "
                              f"pair, expected {want}")
@@ -1370,11 +1462,12 @@ def main(argv=None):
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), total=round(t4 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
-    # pair-kernel path, K1-K5 on the default one; every path beside them,
-    # the graphed ones as launches captured per pair x replays.
+    # pair-kernel path, K1-K5 on the main path (the default pipeline); every
+    # path beside them, the graphed ones as launches captured per pair x
+    # replays.
     for r in rows:
         main_path = ("pair_kernel_48k" if r["name"] == "subtractor_pair"
-                     else "aec3_path")
+                     else "default_48k")
         r["launches"] = launches[main_path][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -191,8 +191,6 @@ _UNPORTED = {
     "levels_adjuster": dict(capture_level_adjustment=(
         cfg_mod.CaptureLevelAdjustment(enabled=True))),
     "pre_amplifier": dict(pre_amplifier=cfg_mod.PreAmplifier(enabled=True)),
-    "split_band_hpf": dict(high_pass_filter=cfg_mod.HighPassFilter(
-        enabled=True, apply_in_full_band=False)),
     "ivc": dict(gain_controller2=cfg_mod.GainController2(
         enabled=True, input_volume_controller=(
             cfg_mod.InputVolumeController(enabled=True)))),
@@ -207,13 +205,17 @@ def test_unported_components_raise(name):
 
 
 @pytest.mark.parametrize("rates", [(32000, 32000), (48000, 16000)])
-def test_unported_rates_raise(rates):
-    """The 32 kHz QMF split and API/processing resampling."""
+def test_qmf_split_and_resampling_rates_run(rates):
+    """The 32 kHz QMF split and API/processing resampling (48 kHz in,
+    processed and sent out at 16 kHz) build and run a frame."""
     config = _slice_config(cfg_mod)
     geo = apm.ApmGeometry.create(config, rates[0], 2,
                                  capture_output_rate=rates[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apm.init_state(geo, 1, device="cpu")
+    state = apm.init_state(geo, 1, device="cpu")
+    x = torch.from_numpy(_frames(1, 4)[0][:1, :rates[0] // 100].copy())
+    state, out, _, _ = apm.process_stream_pair(geo, state, x)
+    assert out.shape == (1, rates[1] // 100, 2)
+    assert torch.isfinite(out).all()
 
 
 def test_injections_raise():

@@ -12,6 +12,7 @@ import torch
 
 import chip_smoke
 
+from tests import torch_rate_matrix as matrix
 from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
 from webrtc_audio_processing_tpu_torch import step_graph
 from webrtc_audio_processing_tpu_torch.models import post_filter
@@ -24,6 +25,7 @@ from webrtc_audio_processing_tpu_torch.ops import (
     cuda_span,
     cuda_subtractor,
     cuda_window,
+    qmf,
 )
 
 pytestmark = pytest.mark.cuda
@@ -136,24 +138,32 @@ def _decimator_table():
     return np.concatenate([aa, nr])
 
 
-@pytest.mark.parametrize("table", ["decimator", "post_filter"])
+@pytest.mark.parametrize("table", ["decimator", "post_filter", "qmf_1",
+                                   "qmf_2"])
 def test_k1_new_callers_match_twin_bit_for_bit(device, table):
     """K1 at the AEC3 decimators' shape (4 sections, one signal per stream,
-    T = 64) and the PostFilter's (4 sections, 2 channels, T = 480)."""
+    T = 64), the PostFilter's (4 sections, 2 channels, T = 480) and the
+    QMF's (3 first-order all-pass rows in the all-pass form, T = 160, M off
+    the 32-lane block)."""
     coeffs, T, M = {
         "decimator": (_decimator_table(), 64, 2048),
         "post_filter": (biquad.pack_coeffs(post_filter.COEFFS_B_48K,
                                            post_filter.COEFFS_A_48K),
                         480, 4096),
+        "qmf_1": (qmf.allpass_rows(qmf.ALLPASS_COEF_1), 160, 4096),
+        "qmf_2": (qmf.allpass_rows(qmf.ALLPASS_COEF_2), 160, 8192 + 5),
     }[table]
+    K = coeffs.shape[0]
     rng = np.random.default_rng(11)
     c = torch.from_numpy(coeffs).to(device)
     x = torch.from_numpy(
         (rng.standard_normal((T, M)) * 3000).astype(np.float32)).to(device)
     st = torch.from_numpy(
-        (rng.standard_normal((16, M)) * 100).astype(np.float32)).to(device)
-    st_k, y_k = cuda_biquad.cascade(c, st, x)
-    st_p, y_p = cuda_biquad.cascade_plain(c, st, x)
+        (rng.standard_normal((4 * K, M)) * 100).astype(np.float32)).to(
+            device)
+    allpass = table.startswith("qmf")
+    st_k, y_k = cuda_biquad.cascade(c, st, x, allpass)
+    st_p, y_p = cuda_biquad.cascade_plain(c, st, x, allpass)
     torch.cuda.synchronize()
     assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
 
@@ -426,7 +436,8 @@ def test_graph_replay_matches_eager_launch(device, kernel):
 
 @pytest.mark.parametrize("mode,pair_kernel", [("48k_stereo", False),
                                               ("48k_stereo", True),
-                                              ("16k_mono", True)])
+                                              ("16k_mono", True),
+                                              ("default_48k", False)])
 def test_pair_graph_replays_equal_eager_pair_steps(device, mode,
                                                    pair_kernel):
     """The pair step captured as one CUDA graph and replayed for 40 pairs
@@ -435,7 +446,7 @@ def test_pair_graph_replays_equal_eager_pair_steps(device, mode,
     every delay and, at the end, every state leaf bit for bit, the block
     ordinal included."""
     geo = chip_smoke.aec3_geometry(mode, pair_kernel)
-    rate, channels, _ = chip_smoke.BENCH_MODES[mode]
+    rate, channels, _ = chip_smoke.MODES[mode]
     frame = rate // 100
     render, capture = chip_smoke.echo_scene(80, 5, range(4), rate, channels)
     ren = torch.from_numpy(render).to(device)
@@ -472,3 +483,42 @@ def test_pair_graph_refuses_an_odd_frame(device):
     state.frame_counter = 3
     with pytest.raises(ValueError, match="even frame"):
         graph.capture()
+
+
+@pytest.mark.parametrize("case", sorted(matrix.CASES))
+def test_rate_matrix_case_on_the_card_matches_the_cpu(device, case):
+    """Each case of the rate and channel matrix (tests/torch_rate_matrix.py)
+    for 6 frames at B = 4 on the card: every kernel launched as often as
+    ``chip_smoke.expected_aec3_launches`` says (K1 on the QMF where the
+    processing rate is 32 kHz); then the last frame once more on the CPU
+    from the card's state before it: relative RMS <= 1e-3 per stream, the
+    same delay, outputs of the API's shapes."""
+    rate, cap, ren, _ = matrix.CASES[case]
+    geo = matrix.geometry(apm, cfg_mod, case)
+    renders, captures = matrix.scene(case, 6, 4, seed=9)
+    state = apm.init_state(geo, 4, device)
+    chip_smoke._reset_counts()
+    for f in range(5):
+        state, _, _, _ = apm.process_stream_pair(
+            geo, state, torch.from_numpy(captures[f]).to(device),
+            torch.from_numpy(renders[f]).to(device))
+    cpu_state = chip_smoke.select_streams(
+        state, torch.arange(4, device=device), "cpu")
+    state, out, rout, stats = apm.process_stream_pair(
+        geo, state, torch.from_numpy(captures[5]).to(device),
+        torch.from_numpy(renders[5]).to(device))
+    torch.cuda.synchronize()
+    assert chip_smoke._counts() == chip_smoke.expected_aec3_launches(geo, 6)
+    _, c_out, c_rout, c_stats = apm.process_stream_pair(
+        geo, cpu_state, torch.from_numpy(captures[5]),
+        torch.from_numpy(renders[5]))
+    assert out.shape == (4, rate // 100, cap)
+    assert rout.shape == (4, rate // 100, ren)
+    for got, want in ((out, c_out), (rout, c_rout)):
+        got, want = got.cpu().numpy(), want.numpy()
+        assert np.isfinite(got).all()
+        rel = np.sqrt(((got - want) ** 2).sum(axis=(1, 2))
+                      / np.maximum((want ** 2).sum(axis=(1, 2)), 1e-30))
+        assert (rel <= 1e-3).all(), rel
+    np.testing.assert_array_equal(stats["delay_ms"].cpu().numpy(),
+                                  c_stats["delay_ms"].numpy())

@@ -4,9 +4,10 @@
   FFMA (a single rounding). Its plain twin rounds the double sum of the
   exact product and c to float, which rounds twice. The two agree on every
   multiply-add the twin does on the port's tables (HPF at 16, 32 and
-  48 kHz, PostFilter, AEC3 decimator) over noise, so kernel and twin can
-  agree bit for bit. The reference here is an exact fma in numpy: the
-  double sum made exact by TwoSum and rounded to odd, then to float.
+  48 kHz, PostFilter, AEC3 decimator, and the QMF's all-pass rows in
+  the all-pass form) over noise, so kernel and twin can agree bit for
+  bit. The reference here is an exact fma in numpy: the double sum made
+  exact by TwoSum and rounded to odd, then to float.
 - K5's twin gives ``lax.dynamic_slice``'s windows for int32 and int64
   starts alike, negative and past the end, at every start residue mod 4
   (the kernel's 16-byte lines).
@@ -49,6 +50,7 @@ from webrtc_audio_processing_tpu_torch.ops import (
     cuda_matched_filter,
     cuda_span,
     cuda_window,
+    qmf,
 )
 
 
@@ -87,6 +89,8 @@ def _tables():
     tables["post_filter"] = biquad.pack_coeffs(post_filter.COEFFS_B_48K,
                                                post_filter.COEFFS_A_48K)
     tables["decimator"] = np.concatenate([aa, nr])
+    tables["qmf_1"] = qmf.allpass_rows(qmf.ALLPASS_COEF_1)
+    tables["qmf_2"] = qmf.allpass_rows(qmf.ALLPASS_COEF_2)
     return tables
 
 
@@ -113,9 +117,12 @@ def test_twin_fma_is_single_rounding_on_every_table(table, monkeypatch):
         return got
 
     monkeypatch.setattr(cuda_biquad, "_fused", checking)
-    cuda_biquad.cascade(coeffs, st, x)
-    # b0 == 1 or b2 == 1 drops one fused op of a section (module docstring).
-    assert checked[0] >= 480 * 64 * K * 2
+    allpass = table.startswith("qmf")
+    cuda_biquad.cascade(coeffs, st, x, allpass=allpass)
+    # b0 == 1 or b2 == 1 drops one fused op of a section (module docstring);
+    # the all-pass form has one.
+    per_section = 1 if allpass else 2
+    assert checked[0] >= 480 * 64 * K * per_section
     assert differ[0] == 0, f"{differ[0]} of {checked[0]} multiply-adds"
 
 

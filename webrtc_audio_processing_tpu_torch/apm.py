@@ -2,17 +2,19 @@
 
 Port of ``webrtc_audio_processing_tpu/apm.py``, the desktop branch
 (reference: audio_processing_impl.cc, ProcessCaptureStreamLocked :1264-1561
-and ProcessRenderStreamLocked :1653-1687): AudioBuffer copy-in, full-band
-HPF, input RMS, band split, the echo controller's mono narrowing, NS
-analyze, AEC3, NS process, band merge, the residual echo detector, AGC2
-with the internal RNN-VAD, the 48 kHz PostFilter, output RMS, copy-out.
-The render side feeds the echo detector and AEC3 its split bands, merges
-and copies back.
+and ProcessRenderStreamLocked :1653-1687): AudioBuffer copy-in (resampled
+to the processing rate), the full-band HPF, input RMS, band split (one
+band, the two-band QMF or the three-band filter bank), the echo
+controller's mono narrowing, the split-band HPF, NS analyze, AEC3, NS
+process, band merge, the residual echo detector, AGC2 with the internal
+RNN-VAD, the 48 kHz PostFilter, output RMS, copy-out (resampled back to the
+API rate). The render side feeds the echo detector and AEC3 its split
+bands, merges and copies back. API rates 8, 16, 32 and 48 kHz, with 1 or 2
+capture and render channels.
 
 Usage, with B streams on one device::
 
-    geo = ApmGeometry.create(config, 48000, 2, num_render_channels=2,
-                             aec3_stereo_content=True)
+    geo = ApmGeometry.create(config, 48000, 2, num_render_channels=2)
     state = init_state(geo, batch=B)   # on the card; device="cpu" to test
     state, out, render_out, stats = process_stream_pair(
         geo, state, capture, render)   # capture, render: (B, 480, C)
@@ -86,9 +88,6 @@ def _check_supported(config: cfg_mod.Config) -> None:
          "the capture levels adjuster (ROADMAP Queue 1 item 12)"),
         (config.pre_amplifier.enabled,
          "the pre-amplifier (ROADMAP Queue 1 item 12)"),
-        ((config.high_pass_filter.enabled or config.noise_suppression.enabled)
-         and not config.high_pass_filter.apply_in_full_band,
-         "the split-band HPF (ROADMAP Queue 1 item 11)"),
         (config.gain_controller2.input_volume_controller.enabled,
          "the AGC2 input volume controller (ROADMAP Queue 1 item 12)"),
     ]
@@ -239,14 +238,29 @@ class ApmGeometry:
                 and self.aec3 is not None)
 
     @property
+    def hpf_full_band(self) -> bool:
+        return self.config.high_pass_filter.apply_in_full_band
+
+    @property
     def hpf_rate(self) -> int:
-        """The full-band HPF selects coefficients at the 48 kHz output rate
-        when processing runs below it (the reference's quirky pairing,
+        """The split-band HPF runs on band 0 at 16 kHz; the full-band HPF
+        selects coefficients at the 48 kHz output rate when processing runs
+        below it (the reference's quirky pairing,
         audio_processing_impl.cc:1282-1287, :1891-1896)."""
+        if not self.hpf_full_band:
+            return 16000
         if (self.capture_output_rate == 48000
                 and self.capture_processing_rate < 48000):
             return 48000
         return self.capture_processing_rate
+
+    @property
+    def hpf_channels(self) -> int:
+        """The full-band HPF runs before the mono narrowing, on every
+        capture channel; the split-band one after it
+        (audio_processing_impl.cc:1891-1896)."""
+        return (self.num_capture_channels if self.hpf_full_band
+                else self.capture_processing_channels)
 
     def capture_buffer_config(self) -> audio_buffer.BufferConfig:
         return audio_buffer.BufferConfig(
@@ -321,7 +335,7 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
         capture_buffer=audio_buffer.init_state(cap_cfg, batch, device),
         render_buffer=audio_buffer.init_state(geo.render_buffer_config(),
                                               batch, device),
-        hpf=(hpf.init_state(batch, geo.num_capture_channels, device)
+        hpf=(hpf.init_state(batch, geo.hpf_channels, device)
              if geo.hpf_enabled else None),
         ns=(ns.init_state(batch, proc_ch, cap_cfg.num_bands, device)
             if c.noise_suppression.enabled else None),
@@ -422,7 +436,7 @@ class Apm(nn.Module):
 
         # Full-band HPF (:1282-1287).
         new_hpf = state.hpf
-        if self.hpf is not None:
+        if self.hpf is not None and geo.hpf_full_band:
             new_hpf, y = self.hpf(state.hpf, y)
 
         input_rms = rms_level.analyze(state.input_rms, y)
@@ -437,6 +451,11 @@ class Apm(nn.Module):
         proc_ch = geo.capture_processing_channels
         if geo.echo_controller_enabled and proc_ch < bands.shape[-1]:
             bands = bands[..., :proc_ch]
+
+        # Split-band HPF (:1375-1380): band 0 with the 16 kHz table.
+        if self.hpf is not None and not geo.hpf_full_band:
+            new_hpf, b0 = self.hpf(state.hpf, bands[:, 0])
+            bands = torch.cat([b0[:, None], bands[:, 1:]], dim=1)
 
         # NS analyze (pre-AEC, :1387-1391).
         new_ns = state.ns

@@ -16,6 +16,13 @@
 //     acc = b2 == 1 ? x2 + acc       : fma(b2, x2, acc)
 //     acc = fma(-a1, y1, acc)
 //     acc = fma(-a2, y2, acc)
+// A caller whose rows are first-order all-pass sections [a, 1, 0, a, 0]
+// (the two-band QMF's branches, ops/qmf.py) asks for the all-pass form,
+// evaluated in the order XLA:CPU gives the JAX package's all-pass scan
+// (ops/qmf.py, y = x1 + a * (x - y1)):
+//     acc = fma(a, x - y1, x1)
+// It is a separate kernel instantiation, chosen on the host, so the biquad
+// form's code is untouched by it.
 // Each fma is one float32 FFMA (__fmaf_rn), the single rounding XLA:CPU
 // does. The PyTorch twin rounds the double sum of the exact product and c
 // to float, which equals it on every multiply-add of the port's tables
@@ -63,7 +70,9 @@ constexpr int kChunk = 32;  // samples per staged chunk
 // 0xFC. A kernel specialised on its table's mask carries no select per
 // operation, as XLA folds x * 1.0 away at compile time; kRuntime decides
 // per section at run time, for any other table.
+// kAllpass: the caller's rows are first-order all-pass sections.
 constexpr int kRuntime = -1;
+constexpr int kAllpass = -2;
 constexpr int kUnit123 = 0xFC;
 constexpr int kUnit12 = 0x3C;
 
@@ -74,18 +83,25 @@ struct Section {
 
 // Section k on one sample, in the oracle's contracted order. After the
 // caller's loop over k is unrolled, k is a constant and a mask other than
-// kRuntime folds both choices away.
+// kRuntime folds the choices away.
 template <int kUnits>
 __device__ __forceinline__ float section_step(Section& s, float in, int k) {
   const bool b0_one =
-      kUnits == kRuntime ? s.b0 == 1.0f : ((kUnits >> (2 * k)) & 1) != 0;
+      kUnits == kRuntime ? s.b0 == 1.0f
+                         : kUnits >= 0 && ((kUnits >> (2 * k)) & 1) != 0;
   const bool b2_one =
-      kUnits == kRuntime ? s.b2 == 1.0f : ((kUnits >> (2 * k + 1)) & 1) != 0;
-  float acc = b0_one ? __fmaf_rn(s.b1, s.x1, in)
-                     : __fmaf_rn(s.b0, in, __fmul_rn(s.b1, s.x1));
-  acc = b2_one ? __fadd_rn(s.x2, acc) : __fmaf_rn(s.b2, s.x2, acc);
-  acc = __fmaf_rn(s.na1, s.y1, acc);
-  acc = __fmaf_rn(s.na2, s.y2, acc);
+      kUnits == kRuntime ? s.b2 == 1.0f
+                         : kUnits >= 0 && ((kUnits >> (2 * k + 1)) & 1) != 0;
+  float acc;
+  if (kUnits == kAllpass) {
+    acc = __fmaf_rn(s.b0, __fsub_rn(in, s.y1), s.x1);
+  } else {
+    acc = b0_one ? __fmaf_rn(s.b1, s.x1, in)
+                 : __fmaf_rn(s.b0, in, __fmul_rn(s.b1, s.x1));
+    acc = b2_one ? __fadd_rn(s.x2, acc) : __fmaf_rn(s.b2, s.x2, acc);
+    acc = __fmaf_rn(s.na1, s.y1, acc);
+    acc = __fmaf_rn(s.na2, s.y2, acc);
+  }
   s.x2 = s.x1;
   s.x1 = in;
   s.y2 = s.y1;
@@ -174,7 +190,7 @@ __device__ __forceinline__ void filter_lane(
 // Lanes past M (in the last block only) filter lane M - 1's column again
 // and store the same values to the same addresses, so no load or store
 // needs a predicate and the loop body stays one block of straight code.
-template <int K>
+template <int K, bool kAllpassRows>
 __global__ void __launch_bounds__(kLanes)
     biquad_cascade_kernel(const float* __restrict__ x, float* __restrict__ y,
                           const float* __restrict__ state_in,
@@ -201,7 +217,9 @@ __global__ void __launch_bounds__(kLanes)
     units |= (sec[k].b2 == 1.0f ? 1 : 0) << (2 * k + 1);
   }
 
-  if (K == 3 && units == kUnit12) {
+  if (kAllpassRows) {
+    filter_lane<K, kAllpass>(sec, stage, x, y, T, M, m, lane);
+  } else if (K == 3 && units == kUnit12) {
     filter_lane<K, kUnit12>(sec, stage, x, y, T, M, m, lane);
   } else if (K == 4 && units == kUnit12) {
     filter_lane<K, kUnit12>(sec, stage, x, y, T, M, m, lane);
@@ -222,20 +240,27 @@ __global__ void __launch_bounds__(kLanes)
 
 template <int K>
 void launch(const float* x, float* y, const float* st_in, float* st_out,
-            const float* coeffs, int T, int M, cudaStream_t stream) {
+            const float* coeffs, int T, int M, bool allpass,
+            cudaStream_t stream) {
   const int blocks = (M + kLanes - 1) / kLanes;
-  biquad_cascade_kernel<K><<<blocks, kLanes, 0, stream>>>(
-      x, y, st_in, st_out, coeffs, T, M);
+  if (allpass) {
+    biquad_cascade_kernel<K, true><<<blocks, kLanes, 0, stream>>>(
+        x, y, st_in, st_out, coeffs, T, M);
+  } else {
+    biquad_cascade_kernel<K, false><<<blocks, kLanes, 0, stream>>>(
+        x, y, st_in, st_out, coeffs, T, M);
+  }
 }
 
 }  // namespace
 
 // x, y: (T, M) float32, time-major. state_in, state_out: (4K, M) float32,
 // rows [x1, x2, y1, y2] per section. coeffs: (K, 5) float32 rows
-// [b0, b1, b2, a1, a2] on the device. Returns cudaGetLastError().
+// [b0, b1, b2, a1, a2] on the device; allpass != 0 takes each row as the
+// first-order all-pass [a, 1, 0, a, 0]. Returns cudaGetLastError().
 extern "C" int biquad_cascade_f32(const void* x, void* y, const void* state_in,
                                   void* state_out, const void* coeffs, int K,
-                                  int T, int M, void* stream) {
+                                  int T, int M, int allpass, void* stream) {
   if (K < 1 || K > kMaxSections || T < 0 || M < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -247,10 +272,10 @@ extern "C" int biquad_cascade_f32(const void* x, void* y, const void* state_in,
   const float* cf = static_cast<const float*>(coeffs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: launch<1>(xf, yf, si, so, cf, T, M, s); break;
-    case 2: launch<2>(xf, yf, si, so, cf, T, M, s); break;
-    case 3: launch<3>(xf, yf, si, so, cf, T, M, s); break;
-    case 4: launch<4>(xf, yf, si, so, cf, T, M, s); break;
+    case 1: launch<1>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
+    case 2: launch<2>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
+    case 3: launch<3>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
+    case 4: launch<4>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -249,9 +249,19 @@ def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
         mc.stereo_detection_timeout_threshold_seconds,
         mc.stereo_detection_hysteresis_seconds)
     state = state.replace(mc_detector=mc_state, mc_config_changed=mc_changed)
+    # Mono fallback downmix (BufferRenderFrameContent via FillSubFrameView,
+    # echo_canceller3.cc:120-155): a mono canceller on a multichannel render
+    # averages the channels while temporary multichannel content is present
+    # and takes channel 0 otherwise; the choice is made per stream on the
+    # device, so the step stays capturable.
     if render_frame.shape[-1] > geo.num_render_channels:
-        raise NotImplementedError(
-            f"the mono render downmix of AEC3 {_ITEM_11}")
+        if geo.num_render_channels != 1:
+            raise ValueError("a partial render downmix is not a reference "
+                             "behavior")
+        avg = torch.mean(render_frame, dim=-1, keepdim=True)
+        render_frame = torch.where(
+            mc_state.temporary_detected[:, None, None, None], avg,
+            render_frame[..., :1])
 
     # Render side: block and insert; the previous pair's staged rows are
     # flushed at the start of each even frame.

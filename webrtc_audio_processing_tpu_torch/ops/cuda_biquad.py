@@ -12,6 +12,12 @@ checked bit for bit against the jitted JAX scan):
     acc = fma(-a1, y1, acc)
     acc = fma(-a2, y2, acc)
 
+With ``allpass=True`` (the two-band QMF's branches, ``ops/qmf.py``) each
+row is a first-order all-pass [a, 1, 0, a, 0], evaluated in the order
+XLA:CPU gives the JAX package's all-pass scan, ``y = x1 + a * (x - y1)``:
+``acc = fma(a, x - y1, x1)``; the kernel runs it as a separate
+instantiation.
+
 The kernel evaluates each fma as one float32 FFMA, XLA:CPU's own single
 rounding. The twin evaluates it as the float rounding of the exact double
 product plus c; on every multiply-add of the port's tables the two agree
@@ -56,7 +62,7 @@ def _fused(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def cascade_plain(coeffs: torch.Tensor, state: torch.Tensor,
-                  x_t: torch.Tensor):
+                  x_t: torch.Tensor, allpass: bool = False):
     """Plain PyTorch twin: the per-sample loop of scan_impl in the
     oracle's contracted rounding (module docstring), one eager op at a
     time."""
@@ -70,13 +76,14 @@ def cascade_plain(coeffs: torch.Tensor, state: torch.Tensor,
     for t in range(x_t.shape[0]):
         sig = x_t[t]
         for k, (b0, b1, b2, a1, a2) in enumerate(c):
-            if b0 == 1.0:
-                y = _fused(b1, x1[k], sig)
+            if allpass:
+                y = _fused(b0, sig - y1[k], x1[k])
             else:
-                y = _fused(b0, sig, b1 * x1[k])
-            y = x2[k] + y if b2 == 1.0 else _fused(b2, x2[k], y)
-            y = _fused(-a1, y1[k], y)
-            y = _fused(-a2, y2[k], y)
+                y = (_fused(b1, x1[k], sig) if b0 == 1.0
+                     else _fused(b0, sig, b1 * x1[k]))
+                y = x2[k] + y if b2 == 1.0 else _fused(b2, x2[k], y)
+                y = _fused(-a1, y1[k], y)
+                y = _fused(-a2, y2[k], y)
             x2[k] = x1[k]
             x1[k] = sig
             y2[k] = y1[k]
@@ -110,7 +117,7 @@ def _check(coeffs, state, x_t):
 
 
 def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
-                 x_t: torch.Tensor):
+                 x_t: torch.Tensor, allpass: bool = False):
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(coeffs, state, x_t)
@@ -121,18 +128,21 @@ def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
     st_out = torch.empty_like(state)
     err = cuda_build.library().lib.biquad_cascade_f32(
         x_t.data_ptr(), y_t.data_ptr(), state.data_ptr(), st_out.data_ptr(),
-        coeffs.data_ptr(), coeffs.shape[0], T, M, cuda_build.raw_stream(x_t),
+        coeffs.data_ptr(), coeffs.shape[0], T, M, int(allpass),
+        cuda_build.raw_stream(x_t),
     )
     cuda_build.check(err, "biquad_cascade_f32")
     launches += 1
     return st_out, y_t
 
 
-def cascade(coeffs: torch.Tensor, state: torch.Tensor, x_t: torch.Tensor):
-    """(coeffs (K, 5), state (4K, M), x_t (T, M)) -> (state, y_t)."""
+def cascade(coeffs: torch.Tensor, state: torch.Tensor, x_t: torch.Tensor,
+            allpass: bool = False):
+    """(coeffs (K, 5), state (4K, M), x_t (T, M)) -> (state, y_t);
+    ``allpass`` evaluates each row as a first-order all-pass section."""
     if x_t.is_cuda:
-        return cascade_cuda(coeffs, state, x_t)
+        return cascade_cuda(coeffs, state, x_t, allpass)
     if x_t.is_cpu:
         _check(coeffs, state, x_t)
-        return cascade_plain(coeffs, state, x_t)
+        return cascade_plain(coeffs, state, x_t, allpass)
     raise ValueError(f"unsupported device {x_t.device}")

@@ -35,8 +35,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, y, state_in, state_out, coeffs, K, T, M, stream
-    "biquad_cascade_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, y, state_in, state_out, coeffs, K, T, M, allpass, stream
+    "biquad_cascade_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # buf, start, start_bytes, out, B, L, W, stream
     "take_windows_f32": (_P, _P, _I, _P, _I, _I, _I, _P),
     # ring, start, out, B, LP, F, W, stream

@@ -83,14 +83,19 @@ def make_plan(source_frames: int, dest_frames: int):
     return src_idx.astype(np.int32), kernels.astype(np.float32)
 
 
-def init_state(source_frames: int, batch: int, device) -> torch.Tensor:
-    """Rolling buffer (B, 2S + 32), zero-initialized (priming pass)."""
-    return torch.zeros((batch, 2 * source_frames + KERNEL_SIZE),
-                       dtype=torch.float32, device=device)
+def init_state(source_frames: int, batch: int, device,
+               num_channels: int | None = None) -> torch.Tensor:
+    """Rolling buffer (B, 2S + 32), or (B, 2S + 32, C) for ``num_channels``
+    channels, zero-initialized (priming pass)."""
+    shape = (batch, 2 * source_frames + KERNEL_SIZE)
+    if num_channels is not None:
+        shape += (num_channels,)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 class PushSincResampler(nn.Module):
-    """One (S -> D) resampler for a batch of mono streams."""
+    """One (S -> D) resampler for a batch of streams, each mono or with
+    channels on a trailing axis."""
 
     def __init__(self, source_frames: int, dest_frames: int):
         super().__init__()
@@ -102,12 +107,33 @@ class PushSincResampler(nn.Module):
         self.register_buffer("kernels", torch.from_numpy(kernels))
 
     def forward(self, state: torch.Tensor, frame: torch.Tensor):
-        """(state (B, 2S + 32), frame (B, S)) -> (new_state, out (B, D)).
+        """(state (B, 2S + 32, ...), frame (B, S, ...)) -> (new_state,
+        out (B, D, ...)); the trailing axes (channels) ride along.
 
         Output delay matches PushSincResampler: kKernelSize/2 source
         samples; the first frame's leading outputs are zeros like the
         reference's priming.
         """
         buf = torch.cat([state[:, self.source_frames:], frame], dim=1)
-        windows = buf[:, self.gather_index]  # (B, D, 32)
-        return buf, torch.sum(windows * self.kernels, dim=-1)
+        windows = buf[:, self.gather_index]  # (B, D, 32, ...)
+        k = self.kernels.view(self.kernels.shape + (1,) * (frame.dim() - 2))
+        return buf, _dot32(windows, k)
+
+
+def _dot32(windows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """sum_j windows[:, :, j] * k[:, j] over the 32 taps in the order
+    XLA:CPU gives the JAX package's ``jnp.sum(windows * k, axis=1)``: eight
+    accumulators, accumulator i taking taps i, i + 8, i + 16, i + 24 by
+    fused multiply-adds (``torch.addcmul`` rounds once), then summed in
+    halves. Any other order differs in the last bits, which the HPF's
+    poles near the unit circle downstream amplify a few hundred times."""
+    lanes = 8
+    w = windows.unflatten(2, (KERNEL_SIZE // lanes, lanes))
+    kk = k.unflatten(1, (KERNEL_SIZE // lanes, lanes))
+    acc = w[:, :, 0] * kk[:, 0]
+    for j in range(1, KERNEL_SIZE // lanes):
+        acc = torch.addcmul(acc, w[:, :, j], kk[:, j])
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[:, :, :lanes] + acc[:, :, lanes:]
+    return acc[:, :, 0]
