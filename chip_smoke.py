@@ -72,10 +72,33 @@ exits non-zero without a result line:
    batch a mode, B = 2048 at 48 kHz stereo and B = 4096 at 16 kHz mono,
    with the subtractor ``AEC3_PAIR_KERNEL`` selects: the line the twin
    prints for those batches.
+9. ``api_48k_stereo``: one ``api.AudioProcessing`` on the card with
+   ``Config()``'s pipeline (HPF, AEC3, NS, AGC2 with the RNN-VAD) at 48 kHz
+   stereo, fed stream 0 of the main path's scene for 300 frames
+   (``process_reverse_stream``, then ``process_stream``). Its outputs must
+   be bit-equal on every frame to ``apm.process_stream_pair`` at B = 1 on
+   the frames it processed (the same kernels in the same order at the same
+   B), ``get_statistics().delay_ms`` the direct path's delay, ERLE above
+   6 dB and the launches as ``expected_aec3_launches`` gives. It prints the
+   host ms per frame (reverse + capture) and the device kernels per frame.
+10. ``engine_default_48k``: ``runtime.StreamingPlane`` and
+   ``BatchEngine`` on ``runtime.apm_step_fn``'s step (the one-frame step
+   captured as one graph per frame parity, ``step_graph.FrameGraphs``) at
+   B = 4096 of ``default_48k``: the first 120 frames of phase 4's scene
+   through the plane, producer threads filling the queues before the
+   engine steps, bit-equal on the checked streams to phase 4's eager
+   outputs; then 40 frames in which every 8th stream misses every 5th
+   frame, bit-equal to an eager ``process_stream_pair`` fed zeros there;
+   frames processed and dropped per stream as pushed. It prints host ms
+   per frame of the pushes, ``collect_batch``, the host-to-device copy and
+   the replay, the device-to-host copy and ``distribute_batch``, and the
+   engine's whole step; the real-time streams beside phase 7's graphed
+   ``default_48k``; the peak device memory.
 
 Before the last line the kernel table as JSON (each kernel's
 ``launches`` from the main path, K6's from ``pair_kernel_48k``, and
-``launches_by_path`` from every path), then the result JSON. The script
+``launches_by_path`` from every path, phases 9 and 10 included), then the
+result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -206,10 +229,17 @@ def device_phase():
 def build_phase():
     from webrtc_audio_processing_tpu_torch.ops import cuda_build
 
+    from webrtc_audio_processing_tpu_torch.runtime import streaming
+
     t0 = time.perf_counter()
-    lib = cuda_build.library()
+    # The streaming plane's g++ build runs beside the kernels' nvcc builds.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        plane = pool.submit(streaming._build_library)
+        lib = cuda_build.library()
+        plane_path = plane.result()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=round(lib.build_seconds, 3), library=lib.path.name,
+          streaming_plane=plane_path.name,
           ptxas=cuda_build.ptxas_lines(lib.log))
 
 
@@ -1188,7 +1218,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
     """Phase 7: ``path`` through the captured pair step, held bit for bit
     to phase 4's eager outputs ``eager_out`` (S, n, channels) and delays
     ``eager_delay`` (S, frames) on the checked streams. Returns the
-    launches: captured per pair x replays."""
+    launches (captured per pair x replays) and the real-time streams."""
     from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
 
     rate, channels, _ = MODES[path.mode]
@@ -1273,7 +1303,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
             f"equal {same_delay}")
     if not (erle > ERLE_BAR_DB).all():
         raise AssertionError(f"ERLE {erle} dB not above {ERLE_BAR_DB} dB")
-    return launches
+    return launches, Bp * min(10.0 / host_ms, 1.0)
 
 
 # Phase 8's batches, one a mode (the main paths' B).
@@ -1299,6 +1329,294 @@ def bench_twin_phase(dev, smi):
                                  f"B = {n}")
     phase("bench_twin", line=bench.result_line(
         best["48k_stereo"], best["16k_mono"], results, smi, pair_kernel))
+
+
+# --------------------------------------------- the API and the engine
+
+API_FRAMES = 300
+API_PROFILED = range(195, 198)  # the first is the profiler's warm-up
+ENGINE_BATCH = 4096
+ENGINE_FRAMES = 120
+ENGINE_QUEUE = 16
+ENGINE_MISS_FRAMES = 40
+ENGINE_PRODUCERS = 8
+
+
+def api_direct_outputs(geo, dev, render, capture, n_frames):
+    """``apm.process_stream_pair`` at B = 1 from ``init_state`` on the
+    frames ``api.AudioProcessing`` processes from the same (n, channels)
+    signals: frame 0's render is silence the echo detector is not fed
+    (the API's lazy initialization drops the render queued before it),
+    every later frame its own. Returns (outputs (n_frames, frame, ch),
+    delays)."""
+    from webrtc_audio_processing_tpu_torch import apm
+
+    frame = geo.capture_input_rate // 100
+    state = apm.init_state(geo, 1, dev)
+    outs, delays = [], []
+    for f in range(n_frames):
+        sl = slice(f * frame, (f + 1) * frame)
+        ren = render[sl] if f else np.zeros_like(render[sl])
+        ren = torch.from_numpy(ren)[None].to(dev)
+        state, out, _, stats = apm.process_stream_pair(
+            geo, state, torch.from_numpy(capture[sl])[None].to(dev), ren,
+            render_valid=None if f else False)
+        outs.append(out[0])
+        delays.append(stats["delay_ms"][0])
+    return (torch.stack(outs).cpu().numpy(),
+            torch.stack(delays).cpu().numpy().tolist())
+
+
+def api_phase(dev, smi):
+    """Phase 9: one ``api.AudioProcessing`` on the card, ``Config()``'s
+    pipeline with HPF, AEC3, NS and AGC2 at 48 kHz stereo, fed stream 0
+    of ``default_48k``'s scene (reverse, then capture, each frame); held
+    bit for bit to ``apm.process_stream_pair`` at B = 1. Returns the
+    launches of its run."""
+    from webrtc_audio_processing_tpu_torch import api, bench, config as cfg_mod
+
+    rate, channels, _ = MODES["default_48k"]
+    frame = rate // 100
+    render, capture = (x[0, :API_FRAMES * frame]
+                       for x in _scene("default_48k", 1))
+    ap = api.AudioProcessing(aec3_config(cfg_mod, "default_48k"), device=dev)
+    outs, delays, kernels = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def frame_call(f):
+        sl = slice(f * frame, (f + 1) * frame)
+        err_r, _ = ap.process_reverse_stream(render[sl], rate)
+        err, out = ap.process_stream(capture[sl], rate)
+        if err_r or err:
+            raise AssertionError(f"API error {err_r}, {err} at frame {f}")
+        outs.append(out)
+        delays.append(ap.get_statistics().delay_ms)
+
+    first_timed = API_PROFILED[-1] + 1
+    _reset_counts()
+    for f in range(API_FRAMES):
+        if f == API_PROFILED[0]:
+            kernels.append(bench.device_kernels(
+                [lambda f=f: frame_call(f)],
+                [lambda g=g: frame_call(g) for g in API_PROFILED[1:]]))
+        elif f not in API_PROFILED:
+            if f == first_timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            frame_call(f)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1000.0 / (API_FRAMES - first_timed)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    geo = ap._geo
+    want = expected_aec3_launches(geo, API_FRAMES)
+    got = np.stack(outs)
+    t1 = time.perf_counter()
+    direct, direct_delay = api_direct_outputs(geo, dev, render, capture,
+                                              API_FRAMES)
+    direct_s = time.perf_counter() - t1
+    differ = [f for f in range(API_FRAMES)
+              if not np.array_equal(got[f], direct[f])]
+    erle = erle_db(capture[None], render[None], got.reshape(1, -1, channels),
+                   frame)
+    # Host ms per frame (reverse + capture) over the frames after the
+    # profiled ones.
+    phase("api_48k_stereo", frames=API_FRAMES, streams=1,
+          timed_frames=API_FRAMES - first_timed, host_ms_per_frame=host_ms,
+          direct_ms_per_frame=direct_s * 1000.0 / API_FRAMES,
+          device_kernels_per_frame=kernels[0],
+          realtime_streams=min(10.0 / host_ms, 1.0),
+          launches=launches, expected_launches=want,
+          bit_equal_to_direct=not differ,
+          frames_differing=len(differ),
+          first_frame_differing=differ[0] if differ else None,
+          delay_ms_equal=delays == direct_delay,
+          last_delay_ms=delays[-1], erle_db=float(erle[0]),
+          peak_mem_gb=peak_gb, card=smi)
+    if differ:
+        raise AssertionError(f"the API differs from process_stream_pair on "
+                             f"{len(differ)} frames from frame {differ[0]}")
+    if delays != direct_delay:
+        raise AssertionError("get_statistics().delay_ms differs from the "
+                             "direct path's delay")
+    if launches != want:
+        raise AssertionError(f"API launches {launches}, expected {want}")
+    if not erle[0] > ERLE_BAR_DB:
+        raise AssertionError(f"API ERLE {erle} dB not above {ERLE_BAR_DB}")
+    return launches
+
+
+def _push_all(plane, render, capture, frames, streams, frame):
+    """Producer threads (one per slice of the streams, each stream's
+    queues fed by one thread) push ``frames`` of every stream in
+    ``streams``; returns the seconds they took."""
+    parts = np.array_split(np.asarray(streams), ENGINE_PRODUCERS)
+
+    def produce(part):
+        for s in part:
+            for f in frames:
+                sl = slice(f * frame, (f + 1) * frame)
+                if not (plane.push_capture(s, capture[s, sl])
+                        and plane.push_render(s, render[s, sl])):
+                    raise AssertionError(f"stream {s} queue full")
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(ENGINE_PRODUCERS) as pool:
+        list(pool.map(produce, parts))
+    return time.perf_counter() - t0
+
+
+def engine_phase(dev, smi, eager_out, graphed_streams):
+    """Phase 10: ``runtime.StreamingPlane`` + ``BatchEngine`` on the APM
+    step captured as one graph per frame parity (``apm_step_fn``), B =
+    4096 streams of ``default_48k``. The first ``ENGINE_FRAMES`` frames of
+    phase 4's scene go through the plane, producers pushing up to the
+    queues' capacity before the engine steps; the checked streams' outputs
+    must be phase 4's eager outputs ``eager_out`` bit for bit. Then
+    ``ENGINE_MISS_FRAMES`` frames in which every 8th stream misses every
+    5th frame, against an eager ``process_stream_pair`` fed zeros in
+    those rows. Returns the launches: captured per frame pair x pairs."""
+    from webrtc_audio_processing_tpu_torch import apm, step_graph
+    from webrtc_audio_processing_tpu_torch.runtime import (
+        BatchEngine,
+        StreamingPlane,
+        apm_step_fn,
+    )
+
+    rate, channels, _ = MODES["default_48k"]
+    frame, Bp = rate // 100, ENGINE_BATCH
+    render, capture = _scene("default_48k", Bp)
+    check = [0, Bp - 1]
+    geo = aec3_geometry("default_48k", False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    _reset_counts()
+    t0 = time.perf_counter()
+    step_fn, state, graphs = apm_step_fn(geo, Bp, dev)
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    state_gb = sum(t.nbytes for t in step_graph._tensor_leaves(state)) / 1e9
+    # What the graphs' private pool holds beyond the state they own.
+    pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9 - state_gb
+    # The warm-up and the capture each run one even and one odd frame.
+    captured = {k: v // 2 for k, v in _counts().items()}
+    want = expected_aec3_launches(geo, 2)
+    if _counts() != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"engine graphs launched {_counts()}, expected "
+                             f"twice {want}")
+
+    plane = StreamingPlane(Bp, frame, channels, channels, ENGINE_QUEUE)
+    engine = BatchEngine(plane, step_fn, state, device=dev, sync_stages=True)
+    got = {s: [] for s in check}
+    push_s = step_s = pop_s = 0.0
+    for c0 in range(0, ENGINE_FRAMES, ENGINE_QUEUE):
+        chunk = range(c0, min(c0 + ENGINE_QUEUE, ENGINE_FRAMES))
+        push_s += _push_all(plane, render, capture, chunk, range(Bp), frame)
+        for _ in chunk:
+            t1 = time.perf_counter()
+            fed = engine.step()
+            step_s += time.perf_counter() - t1
+            if fed != Bp:
+                raise AssertionError(f"the engine fed {fed} streams")
+        t1 = time.perf_counter()
+        for s in range(Bp):
+            for _ in chunk:
+                out = plane.pop_output(s)
+                if s in got:
+                    got[s].append(out)
+        pop_s += time.perf_counter() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got_out = np.stack([np.concatenate(got[s]) for s in check])
+    differ = [f for f in range(ENGINE_FRAMES) if not np.array_equal(
+        got_out[:, f * frame:(f + 1) * frame],
+        eager_out[:, f * frame:(f + 1) * frame])]
+    processed = {plane.frames_processed(s) for s in range(Bp)}
+    dropped = sum(plane.dropped(s) for s in range(Bp))
+    sec = {k: v * 1000.0 / ENGINE_FRAMES for k, v in engine.seconds.items()}
+    t_step = step_s * 1000.0 / ENGINE_FRAMES
+
+    # Missed frames: the same graphs from a fresh state, one frame pushed
+    # and stepped at a time; every 8th stream misses every 5th frame.
+    step_graph.copy_into(graphs.state, apm.init_state(geo, Bp, dev))
+    graphs.state.frame_counter = 0
+    plane2 = StreamingPlane(Bp, frame, channels, channels, ENGINE_QUEUE)
+    engine2 = BatchEngine(plane2, step_fn, graphs.state, device=dev)
+    eager = apm.init_state(geo, Bp, dev)
+    miss_rows = np.arange(Bp) % 8 == 0
+    rows = torch.from_numpy(miss_rows).to(dev)[:, None, None]
+    m_check = [0, Bp - 1]  # stream 0 misses, stream 4095 does not
+    m_got = {s: [] for s in m_check}
+    m_want = {s: [] for s in m_check}
+    for f in range(ENGINE_MISS_FRAMES):
+        missed = f % 5 == 0
+        fed = np.flatnonzero(~miss_rows) if missed else np.arange(Bp)
+        _push_all(plane2, render, capture, [f], fed, frame)
+        if engine2.step() != fed.size:
+            raise AssertionError("the engine fed the wrong streams")
+        sl = slice(f * frame, (f + 1) * frame)
+        cap = torch.from_numpy(capture[:, sl]).to(dev)
+        ren = torch.from_numpy(render[:, sl]).to(dev)
+        if missed:
+            cap = torch.where(rows, 0.0, cap)
+            ren = torch.where(rows, 0.0, ren)
+        eager, out, _, _ = apm.process_stream_pair(geo, eager, cap, ren)
+        for s in m_check:
+            if not (missed and miss_rows[s]):
+                m_want[s].append(out[s].cpu().numpy())
+        for s in range(Bp):
+            out = plane2.pop_output(s)
+            if s in m_got and out is not None:
+                m_got[s].append(out)
+    m_equal = {s: len(m_got[s]) == len(m_want[s]) and all(
+        np.array_equal(g, w) for g, w in zip(m_got[s], m_want[s]))
+        for s in m_check}
+    m_processed = {plane2.frames_processed(s) for s in np.flatnonzero(
+        miss_rows)}, {plane2.frames_processed(s) for s in np.flatnonzero(
+            ~miss_rows)}
+    m_dropped = sum(plane2.dropped(s) for s in range(Bp))
+    pairs = (ENGINE_FRAMES + ENGINE_MISS_FRAMES) // 2
+    launches = {k: v * pairs for k, v in captured.items()}
+    phase("engine_default_48k", streams=Bp, frames=ENGINE_FRAMES,
+          queue_capacity=ENGINE_QUEUE, producers=ENGINE_PRODUCERS,
+          push_ms_per_frame=push_s * 1000.0 / ENGINE_FRAMES,
+          collect_ms_per_frame=sec["collect"],
+          h2d_and_replay_ms_per_frame=sec["step"],
+          d2h_and_distribute_ms_per_frame=sec["out"],
+          engine_step_ms_per_frame=t_step,
+          pop_ms_per_frame=pop_s * 1000.0 / ENGINE_FRAMES,
+          realtime_streams=Bp * min(10.0 / t_step, 1.0),
+          graphed_realtime_streams=graphed_streams,
+          build_and_capture_seconds=build_s,
+          capture_seconds=graphs.capture_seconds,
+          launches_captured_per_pair=captured, launches=launches,
+          bit_equal_to_eager=not differ,
+          frames_differing_from_eager=len(differ),
+          first_frame_differing=differ[0] if differ else None,
+          frames_processed=sorted(processed), dropped=dropped,
+          missed_frames_bit_equal=m_equal,
+          missed_frames_processed=[sorted(x) for x in m_processed],
+          missed_frames_dropped=m_dropped,
+          peak_mem_gb=peak_gb, state_gb=state_gb, graph_pool_gb=pool_gb,
+          card=smi)
+    if captured != want:
+        raise AssertionError(f"engine captured {captured} a pair, expected "
+                             f"{want}")
+    if differ:
+        raise AssertionError(f"engine outputs differ from eager on "
+                             f"{len(differ)} frames from {differ[0]}")
+    if processed != {ENGINE_FRAMES} or dropped:
+        raise AssertionError(f"frames processed {processed}, dropped "
+                             f"{dropped}")
+    if not all(m_equal.values()):
+        raise AssertionError(f"missed-frame run differs: {m_equal}")
+    if m_processed != ({ENGINE_MISS_FRAMES - ENGINE_MISS_FRAMES // 5},
+                       {ENGINE_MISS_FRAMES}) or m_dropped:
+        raise AssertionError(f"missed-frame counts {m_processed}, dropped "
+                             f"{m_dropped}")
+    return launches
 
 
 # ----------------------------------------------------------- slice-1 path
@@ -1442,15 +1760,17 @@ def main(argv=None):
     if args.kernels_only:
         phase("wall_seconds", total=round(time.perf_counter() - t_all, 3))
         return 0
-    walls, launches = {}, {}
+    walls, launches, eager_out, streams = {}, {}, {}, {}
     for path in AEC3_PATHS:
         t0 = time.perf_counter()
         run, launches[path.name] = aec3_path_phase(dev, smi, path)
+        eager_out[path.name] = run[4]
         t1 = time.perf_counter()
         aec3_cross_check_phase(path, *run)
         t2 = time.perf_counter()
         graphed = f"{path.name}_graphed"
-        launches[graphed] = graphed_path_phase(dev, smi, path, *run[4:])
+        launches[graphed], streams[graphed] = graphed_path_phase(
+            dev, smi, path, *run[4:])
         walls[path.name] = round(t1 - t0, 3)
         walls[f"{path.name}_cross_check"] = round(t2 - t1, 3)
         walls[graphed] = round(time.perf_counter() - t2, 3)
@@ -1459,8 +1779,14 @@ def main(argv=None):
     t3 = time.perf_counter()
     bench_twin_phase(dev, smi)
     t4 = time.perf_counter()
+    launches["api_48k_stereo"] = api_phase(dev, smi)
+    t5 = time.perf_counter()
+    launches["engine_default_48k"] = engine_phase(
+        dev, smi, eager_out["default_48k"], streams["default_48k_graphed"])
+    t6 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
-          bench_twin=round(t4 - t3, 3), total=round(t4 - t_all, 3))
+          bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
+          engine_default_48k=round(t6 - t5, 3), total=round(t6 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
     # pair-kernel path, K1-K5 on the main path (the default pipeline); every
     # path beside them, the graphed ones as launches captured per pair x

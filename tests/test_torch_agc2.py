@@ -271,12 +271,3 @@ def test_gain_controller2_matches():
                                        rtol=1e-4, atol=1e-4, err_msg=k)
         if f == 2:
             _assert_states_close(state, jstate)
-
-
-@pytest.mark.parametrize("what", ["ivc"])
-def test_gain_controller2_unported_parts_raise(what):
-    from webrtc_audio_processing_tpu_torch.config import InputVolumeController
-    cfg = Agc2Config(enabled=True,
-                     input_volume_controller=InputVolumeController(True))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gc2.GainController2(cfg, 48000)

@@ -188,12 +188,6 @@ _UNPORTED = {
     "aecm": dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True,
                                                       mobile_mode=True)),
     "agc1": dict(gain_controller1=cfg_mod.GainController1(enabled=True)),
-    "levels_adjuster": dict(capture_level_adjustment=(
-        cfg_mod.CaptureLevelAdjustment(enabled=True))),
-    "pre_amplifier": dict(pre_amplifier=cfg_mod.PreAmplifier(enabled=True)),
-    "ivc": dict(gain_controller2=cfg_mod.GainController2(
-        enabled=True, input_volume_controller=(
-            cfg_mod.InputVolumeController(enabled=True)))),
 }
 
 
@@ -245,6 +239,11 @@ x = torch.from_numpy(np.random.default_rng(0).uniform(
     -0.3, 0.3, (1, 480, 2)).astype(np.float32))
 state, out, rout, stats = apm.process_stream_pair(geo, state, x, x)
 assert out.shape == (1, 480, 2) and bool(torch.isfinite(out).all())
+from webrtc_audio_processing_tpu_torch import api, run_offline, runtime
+ap = api.AudioProcessing(cfg, device="cpu")
+err, y = ap.process_stream(x[0].numpy(), 48000)
+assert err == 0 and y.shape == (480, 2)
+assert runtime.BatchEngine and runtime.apm_step_fn and run_offline.main
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib",
                                       "webrtc_audio_processing_tpu."))

@@ -522,3 +522,123 @@ def test_rate_matrix_case_on_the_card_matches_the_cpu(device, case):
         assert (rel <= 1e-3).all(), rel
     np.testing.assert_array_equal(stats["delay_ms"].cpu().numpy(),
                                   c_stats["delay_ms"].numpy())
+
+
+# ------------------------------------------- the API and the engine
+
+
+@pytest.mark.parametrize("mode", ["default_48k", "48k_stereo"])
+def test_frame_graphs_replay_equal_eager_frames(device, mode):
+    """The one-frame step captured as two graphs (even and odd frame) and
+    replayed alternately for 80 frames (200 blocks, past the 48 kHz stereo
+    ring's wrap at L = 167) at B = 4, against the same frames run eagerly:
+    every output and delay of both parities and, at the end, every state
+    leaf bit for bit, the block ordinal included."""
+    geo = chip_smoke.aec3_geometry(mode, False)
+    rate, channels, _ = chip_smoke.MODES[mode]
+    frame = rate // 100
+    render, capture = chip_smoke.echo_scene(80, 6, range(4), rate, channels)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    graphs = step_graph.FrameGraphs(geo, apm.init_state(geo, 4, device))
+    graphs.capture_graphs()
+    eager = apm.init_state(geo, 4, device)
+    for f in range(80):
+        sl = slice(f * frame, (f + 1) * frame)
+        g, g_r, g_st = graphs.replay(cap[:, sl], ren[:, sl])
+        eager, w, w_r, w_st = apm.process_stream_pair(geo, eager, cap[:, sl],
+                                                      ren[:, sl])
+        assert torch.equal(g, w) and torch.equal(g_r, w_r), f
+        assert torch.equal(g_st["delay_ms"], w_st["delay_ms"]), f
+    assert graphs.state.frame_counter == eager.frame_counter == 80
+    got, want = apm.state_to_numpy(graphs.state), apm.state_to_numpy(eager)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert int(graphs.state.aec3_block_ordinal) == 200
+
+
+def test_api_on_the_card_matches_process_stream_pair(device):
+    """``api.AudioProcessing`` (reverse, then capture) on ``Config()``'s
+    pipeline at 48 kHz stereo against ``apm.process_stream_pair`` at B = 1
+    on the same frames: bit for bit, delays equal, K1-K5 launched as
+    ``expected_aec3_launches`` says."""
+    from webrtc_audio_processing_tpu_torch import api
+
+    n = 30
+    render, capture = chip_smoke.echo_scene(n, 7, [0], 48000, 2)
+    ap = api.AudioProcessing(chip_smoke.aec3_config(cfg_mod, "default_48k"),
+                             device=device)
+    chip_smoke._reset_counts()
+    outs, delays = [], []
+    for f in range(n):
+        sl = slice(f * 480, (f + 1) * 480)
+        assert ap.process_reverse_stream(render[0, sl], 48000)[0] == 0
+        err, out = ap.process_stream(capture[0, sl], 48000)
+        assert err == 0
+        outs.append(out)
+        delays.append(ap.get_statistics().delay_ms)
+    assert chip_smoke._counts() == chip_smoke.expected_aec3_launches(
+        ap._geo, n)
+    direct, direct_delays = chip_smoke.api_direct_outputs(
+        ap._geo, device, render[0], capture[0], n)
+    np.testing.assert_array_equal(np.stack(outs), direct)
+    assert delays == direct_delays
+
+
+def test_engine_on_frame_graphs_matches_eager_steps_with_missed_frames(
+        device):
+    """``BatchEngine`` on ``runtime.apm_step_fn``'s graphs at B = 256 of
+    ``default_48k``, two steps a flush: every 8th stream misses every 5th
+    frame; each stream's popped outputs are its rows of eager
+    ``process_stream_pair`` steps fed zeros there, bit for bit."""
+    from webrtc_audio_processing_tpu_torch.runtime import (
+        BatchEngine,
+        StreamingPlane,
+        apm_step_fn,
+    )
+
+    B, n = 256, 20
+    geo = chip_smoke.aec3_geometry("default_48k", False)
+    render, capture = chip_smoke.echo_scene(n, 8, range(B), 48000, 2)
+    step_fn, state, graphs = apm_step_fn(geo, B, device)
+    assert graphs is not None
+    plane = StreamingPlane(B, 480, 2, 2, queue_capacity=n)
+    engine = BatchEngine(plane, step_fn, state, flush_every=2, device=device)
+    eager = apm.init_state(geo, B, device)
+    miss = np.arange(B) % 8 == 0
+    rows = torch.from_numpy(miss).to(device)[:, None, None]
+    want = {s: [] for s in range(B)}
+    for f in range(n):
+        missed = f % 5 == 0
+        sl = slice(f * 480, (f + 1) * 480)
+        for s in range(B):
+            if not (missed and miss[s]):
+                assert plane.push_capture(s, capture[s, sl])
+                assert plane.push_render(s, render[s, sl])
+        engine.step()
+        cap = torch.from_numpy(capture[:, sl]).to(device)
+        ren = torch.from_numpy(render[:, sl]).to(device)
+        if missed:
+            cap, ren = torch.where(rows, 0.0, cap), torch.where(rows, 0.0, ren)
+        eager, out, _, _ = apm.process_stream_pair(geo, eager, cap, ren)
+        out = out.cpu().numpy()
+        for s in range(B):
+            if not (missed and miss[s]):
+                want[s].append(out[s])
+    engine.flush()
+    for s in range(B):
+        got = [plane.pop_output(s) for _ in range(len(want[s]))]
+        assert plane.pop_output(s) is None
+        np.testing.assert_array_equal(np.stack(got), np.stack(want[s]),
+                                      err_msg=str(s))
+        assert plane.frames_processed(s) == len(want[s])
+        assert plane.dropped(s) == 0
+
+
+def test_streaming_plane_builds_into_the_build_directory(device):
+    from webrtc_audio_processing_tpu_torch.ops import cuda_build
+    from webrtc_audio_processing_tpu_torch.runtime import streaming
+
+    path = streaming._build_library()
+    assert path.parent == cuda_build.BUILD_DIR and path.exists()

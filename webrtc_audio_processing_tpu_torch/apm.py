@@ -10,7 +10,9 @@ process, band merge, the residual echo detector, AGC2 with the internal
 RNN-VAD, the 48 kHz PostFilter, output RMS, copy-out (resampled back to the
 API rate). The render side feeds the echo detector and AEC3 its split
 bands, merges and copies back. API rates 8, 16, 32 and 48 kHz, with 1 or 2
-capture and render channels.
+capture and render channels. The capture levels: the pre-amplifier, the
+capture levels adjuster's pre and post gains, and AGC2's input volume
+controller (``GainController2::Analyze`` on the pre-processed capture).
 
 Usage, with B streams on one device::
 
@@ -30,8 +32,8 @@ replays correctly; the AEC3 render rings are updated in place. AEC3's
 subtractor runs as plain PyTorch unless ``aec3_pair_kernel`` is true, when
 it runs on the pair kernel K6
 (``ec3.pair_kernel_from_env`` reads the JAX package's ``AEC3_PAIR_KERNEL``
-switch for a caller that wants it). Everything outside this chain raises
-``NotImplementedError`` naming its ROADMAP item.
+switch for a caller that wants it). AECM and AGC1 raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from torch import nn
 from webrtc_audio_processing_tpu_torch import config as cfg_mod
 from webrtc_audio_processing_tpu_torch.models import (
     audio_buffer,
+    capture_levels_adjuster as cla,
     echo_detector,
     high_pass_filter as hpf,
     noise_suppressor as ns,
@@ -61,6 +64,8 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
 from webrtc_audio_processing_tpu_torch.models.agc2 import (
     gain_controller2 as gc2,
 )
+from webrtc_audio_processing_tpu_torch.ops import batch as batch_ops
+from webrtc_audio_processing_tpu_torch.ops import gain_ramp
 
 DELAY_HISTORY_FRAMES = 100
 
@@ -84,12 +89,6 @@ def _check_supported(config: cfg_mod.Config) -> None:
          "the mobile echo canceller AECM (ROADMAP Queue 1 item 13)"),
         (config.gain_controller1.enabled,
          "AGC1 (ROADMAP Queue 1 item 13)"),
-        (config.capture_level_adjustment.enabled,
-         "the capture levels adjuster (ROADMAP Queue 1 item 12)"),
-        (config.pre_amplifier.enabled,
-         "the pre-amplifier (ROADMAP Queue 1 item 12)"),
-        (config.gain_controller2.input_volume_controller.enabled,
-         "the AGC2 input volume controller (ROADMAP Queue 1 item 12)"),
     ]
     for bad, what in unported:
         if bad:
@@ -292,7 +291,9 @@ class ApmState:
 
     capture_buffer: audio_buffer.AudioBufferState
     render_buffer: audio_buffer.AudioBufferState
+    pre_amp_gain: torch.Tensor | None  # (B,) the applied gain (ramp start)
     hpf: hpf.HighPassFilterState | None
+    cla: cla.CaptureLevelsAdjusterState | None
     ns: ns.NsState | None
     aec: ec3.EchoCanceller3State | None
     agc2: gc2.Agc2State | None
@@ -318,7 +319,7 @@ def _resolve_device(device):
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "init_state puts the state on the GPU by default and no CUDA "
+            "the port puts the state on the GPU by default and no CUDA "
             "device is available; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda")
 
@@ -329,19 +330,28 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
     device = _resolve_device(device)
     c = geo.config
     cap_cfg = geo.capture_buffer_config()
+    cla_cfg = c.capture_level_adjustment
     proc_ch = geo.capture_processing_channels
     has_aec = geo.aec3 is not None
     return ApmState(
         capture_buffer=audio_buffer.init_state(cap_cfg, batch, device),
         render_buffer=audio_buffer.init_state(geo.render_buffer_config(),
                                               batch, device),
+        pre_amp_gain=(torch.full((batch,), c.pre_amplifier.fixed_gain_factor,
+                                 dtype=torch.float32, device=device)
+                      if c.pre_amplifier.enabled else None),
         hpf=(hpf.init_state(batch, geo.hpf_channels, device)
              if geo.hpf_enabled else None),
+        cla=(cla.init_state(
+            cla_cfg.pre_gain_factor, cla_cfg.post_gain_factor,
+            cla_cfg.analog_mic_gain_emulation.initial_level,
+            cla_cfg.analog_mic_gain_emulation.enabled, batch, device)
+             if cla_cfg.enabled else None),
         ns=(ns.init_state(batch, proc_ch, cap_cfg.num_bands, device)
             if c.noise_suppression.enabled else None),
         aec=ec3.init_state(geo.aec3, batch, device) if has_aec else None,
         agc2=(gc2.init_state(c.gain_controller2, geo.capture_processing_rate,
-                             batch, device)
+                             batch, device, num_channels=proc_ch)
               if c.gain_controller2.enabled else None),
         pf=(post_filter.init_state(batch, proc_ch, device)
             if geo.post_filter_enabled else None),
@@ -392,16 +402,25 @@ class Apm(nn.Module):
         self.post_filter = (post_filter.PostFilter()
                             if geo.post_filter_enabled else None)
 
-    def process_render_stream(self, state: ApmState, render: torch.Tensor):
+    def process_render_stream(self, state: ApmState, render: torch.Tensor,
+                              feed_valid=None):
         """Render half (ProcessRenderStreamLocked, :1653-1687): copy in, the
         echo detector's render analysis, split, merge, copy back.
+
+        ``feed_valid``: None when the frame is real; False, or a (B,) bool
+        tensor false on the rows, where the frame is a fabricated silence
+        (no queued render, or queued render a re-init dropped). The echo
+        detector, the render queue's consumer, is not fed there: the
+        reference's EmptyQueuedRenderAudioLocked finds an empty queue.
 
         Returns (state, render_out, render_bands)."""
         rb = self.render_buffer
         rbuf, r = rb.copy_from(state.render_buffer, render)
-        if state.ed is not None:
-            state = dataclasses.replace(
-                state, ed=echo_detector.analyze_render_audio(state.ed, r))
+        if state.ed is not None and feed_valid is not False:
+            ed = echo_detector.analyze_render_audio(state.ed, r)
+            if feed_valid is not None and feed_valid is not True:
+                ed = batch_ops.tree_where(feed_valid, ed, state.ed)
+            state = dataclasses.replace(state, ed=ed)
         if rb.cfg.num_bands > 1:
             rbuf, render_bands = rb.split_into_frequency_bands(rbuf, r)
             rbuf, r = rb.merge_frequency_bands(rbuf, render_bands)
@@ -412,24 +431,36 @@ class Apm(nn.Module):
                 render_bands)
 
     def forward(self, state: ApmState, capture: torch.Tensor,
-                render: torch.Tensor | None = None):
+                render: torch.Tensor | None = None, *,
+                render_bands: torch.Tensor | None = None,
+                render_valid=None, stream_delay_ms=None,
+                applied_input_volume=None):
         """One paired 10 ms step: render, then capture.
 
         capture: (B, capture_in_frames, C_cap), render: (B, render_in_frames,
-        C_ren), both in [-1, 1]. Returns (state, capture_out, render_out,
-        stats), every stats value batch-first.
+        C_ren), both in [-1, 1]. ``render_bands``: in place of ``render``,
+        the bands an earlier ``process_render_stream`` made (a capture-only
+        step). ``render_valid``: see ``process_render_stream``'s
+        ``feed_valid``. ``stream_delay_ms`` is accepted and unused, as on
+        the JAX package's desktop path (only AECM reads it).
+        ``applied_input_volume``: the mic volume (an int or (B,) int32) for
+        AGC2's input volume controller, 0 when not given. Returns (state,
+        capture_out, render_out, stats), every stats value batch-first.
         """
+        del stream_delay_ms
         geo = self.geo
+        c = geo.config
         f = state.frame_counter
         render_out = render
-        render_bands = None
         if render is not None:
+            if render_bands is not None:
+                raise ValueError("pass render or render_bands, not both")
             state, render_out, render_bands = self.process_render_stream(
-                state, render)
-        elif state.aec is not None:
+                state, render, feed_valid=render_valid)
+        elif state.aec is not None and render_bands is None:
             raise ValueError(
                 "with the echo canceller on, every step needs a render frame "
-                "(pass silence when the far end sends none)")
+                "or its bands (pass silence when the far end sends none)")
 
         cb = self.capture_buffer
         cbuf, y = cb.copy_from(state.capture_buffer, capture)
@@ -439,7 +470,32 @@ class Apm(nn.Module):
         if self.hpf is not None and geo.hpf_full_band:
             new_hpf, y = self.hpf(state.hpf, y)
 
+        # Pre-amplifier and the capture levels adjuster's pre gain
+        # (:1289-1299; the reference routes the pre-amplifier through the
+        # adjuster, :972-981).
+        pre_amp_gain = state.pre_amp_gain
+        if pre_amp_gain is not None:
+            g = torch.full_like(pre_amp_gain,
+                                c.pre_amplifier.fixed_gain_factor)
+            gains = gain_ramp.ramped_gains_scaler(pre_amp_gain, g, y.shape[1])
+            y = torch.clamp(y * gains[:, :, None], -32768.0, 32767.0)
+            pre_amp_gain = g
+        new_cla = state.cla
+        if new_cla is not None:
+            new_cla, y = cla.apply_pre_level_adjustment(
+                new_cla, y,
+                c.capture_level_adjustment.analog_mic_gain_emulation.enabled)
+
         input_rms = rms_level.analyze(state.input_rms, y)
+
+        # AGC2's input volume analysis on the pre-processed capture
+        # (GainController2::Analyze, :1317).
+        new_agc2 = state.agc2
+        if new_agc2 is not None and new_agc2.ivc is not None:
+            new_agc2 = gc2.analyze(
+                new_agc2,
+                0 if applied_input_volume is None else applied_input_volume,
+                y)
 
         # Band split (:1359-1363).
         if cb.cfg.num_bands > 1:
@@ -490,9 +546,8 @@ class Apm(nn.Module):
             stats.update(echo_detector.get_metrics(new_ed))
 
         # AGC2 (:1472-1477).
-        new_agc2 = state.agc2
         if self.agc2 is not None:
-            new_agc2, y, info = self.agc2(state.agc2, y)
+            new_agc2, y, info = self.agc2(new_agc2, y)
             stats.update({f"agc2_{k}": v for k, v in info.items()})
 
         # PostFilter (:1479-1481), only at exactly 48 kHz with AEC3.
@@ -501,12 +556,19 @@ class Apm(nn.Module):
             new_pf, y = self.post_filter(state.pf, y)
 
         output_rms = rms_level.analyze(state.output_rms, y)
+
+        # The capture levels adjuster's post gain (:1526-1538).
+        if new_cla is not None:
+            new_cla, y = cla.apply_post_level_adjustment(new_cla, y)
+
         cbuf, out = cb.copy_to(cbuf, y)
 
         state = dataclasses.replace(
             state,
             capture_buffer=cbuf,
+            pre_amp_gain=pre_amp_gain,
             hpf=new_hpf,
+            cla=new_cla,
             ns=new_ns,
             aec=new_aec,
             agc2=new_agc2,
@@ -542,15 +604,17 @@ def module_for(geo: ApmGeometry, device: torch.device) -> Apm:
 
 
 def process_render_stream(geo: ApmGeometry, state: ApmState,
-                          render: torch.Tensor):
-    return module_for(geo, render.device).process_render_stream(state, render)
+                          render: torch.Tensor, feed_valid=None):
+    return module_for(geo, render.device).process_render_stream(
+        state, render, feed_valid=feed_valid)
 
 
 def process_stream_pair(geo: ApmGeometry, state: ApmState,
                         capture: torch.Tensor,
-                        render: torch.Tensor | None = None):
-    """One paired step for B streams; see ``Apm.forward``."""
-    return module_for(geo, capture.device)(state, capture, render)
+                        render: torch.Tensor | None = None, **kw):
+    """One paired step for B streams; see ``Apm.forward`` for the keyword
+    arguments."""
+    return module_for(geo, capture.device)(state, capture, render, **kw)
 
 
 # --------------------------------------------------- state from and to JAX

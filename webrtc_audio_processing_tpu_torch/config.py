@@ -227,3 +227,14 @@ class Config:
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
 
+
+
+# Native API sample rates (audio_processing.h:686-691) and frame geometry
+# (audio_processing.h:697-719: one frame is 10 ms, rate/100 samples/channel).
+NATIVE_SAMPLE_RATES_HZ = (8000, 16000, 32000, 48000)
+MAX_NATIVE_SAMPLE_RATE_HZ = 48000
+
+
+def frame_size(sample_rate_hz: int) -> int:
+    """Samples per channel in one 10 ms frame (audio_processing.h:712-719)."""
+    return sample_rate_hz // 100

@@ -1,13 +1,14 @@
 """GainController2: VAD -> levels -> adaptive gain -> limiter.
 
 Port of ``webrtc_audio_processing_tpu/models/agc2/gain_controller2.py``
-``init_state`` and ``process`` (reference: gain_controller2.cc:183-263),
-with the internal RNN-VAD. ``analyze`` and the input volume controller
-(ROADMAP Queue 1 item 12) are not ported yet and raise.
+``init_state``, ``analyze`` and ``process`` (reference:
+gain_controller2.cc:170-263), with the internal RNN-VAD and the input
+volume controller.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -17,19 +18,14 @@ from webrtc_audio_processing_tpu_torch.config import (
     GainController2 as Agc2Config,
 )
 from webrtc_audio_processing_tpu_torch.models.agc2 import adaptive_digital as ad
+from webrtc_audio_processing_tpu_torch.models.agc2 import (
+    input_volume_controller as ivc_mod,
+)
 from webrtc_audio_processing_tpu_torch.models.agc2 import limiter as limiter_mod
 from webrtc_audio_processing_tpu_torch.models.agc2 import vad_wrapper
 from webrtc_audio_processing_tpu_torch.ops.gain_ramp import (
     ramped_gains_applier,
 )
-
-
-def _check_supported(config: Agc2Config) -> None:
-    if config.input_volume_controller.enabled:
-        raise NotImplementedError(
-            "the AGC2 input volume controller is not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
 
 
 @dataclass
@@ -41,17 +37,24 @@ class Agc2State:
     saturation: ad.SaturationProtectorState | None
     adaptive: ad.AdaptiveDigitalState | None
     vad: vad_wrapper.VadState | None = None
-    ivc: None = None
+    ivc: ivc_mod.InputVolumeControllerState | None = None
 
 
 def _fixed_gain_factor(config: Agc2Config) -> float:
     return 10.0 ** (config.fixed_digital.gain_db / 20.0)
 
 
+def _levels_on(config: Agc2Config) -> bool:
+    """The VAD and the speech level estimator serve the adaptive digital
+    controller and the input volume controller alike."""
+    return (config.adaptive_digital.enabled
+            or config.input_volume_controller.enabled)
+
+
 def init_state(config: Agc2Config, sample_rate_hz: int, batch: int,
-               device) -> Agc2State:
-    """The internal-VAD state of gain_controller2.init_state."""
-    _check_supported(config)
+               device, num_channels: int = 1) -> Agc2State:
+    """The internal-VAD state of gain_controller2.init_state; the input
+    volume controller runs one mono controller per ``num_channels``."""
     adaptive_on = config.adaptive_digital.enabled
     return Agc2State(
         fixed_gain_last_factor=torch.full(
@@ -59,7 +62,8 @@ def init_state(config: Agc2Config, sample_rate_hz: int, batch: int,
             device=device),
         limiter=limiter_mod.init_state(batch, device),
         speech_level=(ad.init_speech_level(config.adaptive_digital, batch,
-                                           device) if adaptive_on else None),
+                                           device)
+                      if _levels_on(config) else None),
         noise_floor=(ad.init_noise_floor(sample_rate_hz, batch, device)
                      if adaptive_on else None),
         saturation=(ad.init_saturation_protector(batch, device)
@@ -67,20 +71,32 @@ def init_state(config: Agc2Config, sample_rate_hz: int, batch: int,
         adaptive=(ad.init_adaptive_digital(config.adaptive_digital, batch,
                                            device) if adaptive_on else None),
         vad=(vad_wrapper.init_state(sample_rate_hz, batch, device)
-             if adaptive_on else None),
+             if _levels_on(config) else None),
+        ivc=(ivc_mod.init_state(ivc_mod.InputVolumeControllerConfig(),
+                                num_channels, batch, device)
+             if config.input_volume_controller.enabled else None),
     )
+
+
+def analyze(state: Agc2State, applied_input_volume, x) -> Agc2State:
+    """GainController2::Analyze (gain_controller2.cc:170-181): feed the
+    pre-processing capture frame (B, N, C) to the input volume
+    controller."""
+    if state.ivc is None:
+        return state
+    return dataclasses.replace(state, ivc=ivc_mod.analyze_input_audio(
+        ivc_mod.InputVolumeControllerConfig(), state.ivc,
+        applied_input_volume, x))
 
 
 class GainController2(nn.Module):
     def __init__(self, config: Agc2Config, sample_rate_hz: int,
                  raw_vad_weights: dict | None = None):
         super().__init__()
-        _check_supported(config)
         self.config = config
         self.sample_rate_hz = sample_rate_hz
-        adaptive_on = config.adaptive_digital.enabled
         self.vad = (vad_wrapper.VadWrapper(sample_rate_hz, raw_vad_weights)
-                    if adaptive_on else None)
+                    if _levels_on(config) else None)
         self.limiter = limiter_mod.Limiter()
 
     def forward(self, state: Agc2State, x: torch.Tensor):
@@ -114,6 +130,17 @@ class GainController2(nn.Module):
                                                   speech_probability)
             info["speech_level_dbfs"] = speech_level.level_dbfs
             info["speech_level_is_confident"] = speech_level.is_confident
+
+        # Input volume recommendation (:227-234): the speech level counts
+        # only when the estimator is confident.
+        ivc = state.ivc
+        if ivc is not None:
+            ivc, rec_vol, rec_valid = ivc_mod.recommend_input_volume(
+                ivc_mod.InputVolumeControllerConfig(), ivc,
+                speech_probability, speech_level.level_dbfs,
+                speech_level.is_confident)
+            info["recommended_input_volume"] = rec_vol
+            info["recommended_input_volume_valid"] = rec_valid
 
         y = x
         if adaptive is not None:
@@ -149,6 +176,7 @@ class GainController2(nn.Module):
                 saturation=saturation,
                 adaptive=adaptive,
                 vad=vad,
+                ivc=ivc,
             ),
             y,
             info,

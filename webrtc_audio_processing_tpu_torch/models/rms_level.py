@@ -45,3 +45,24 @@ def analyze(state: RmsLevelState, x: torch.Tensor) -> RmsLevelState:
         sample_count=state.sample_count + x.shape[1] * x.shape[2],
         max_sum_square=torch.maximum(state.max_sum_square, sum_square),
     )
+
+
+def _compute_rms(mean_square):
+    """ComputeRms (rms_level.cc:34-48): negated dBFS int in [0, 127]."""
+    faint = mean_square <= _MIN_LEVEL * _MAX_SQUARED_LEVEL
+    norm = torch.clamp(mean_square, min=1e-30) / _MAX_SQUARED_LEVEL
+    val = (-10.0 * torch.log10(norm) + 0.5).to(torch.int32)
+    return torch.where(faint, MIN_LEVEL_DB, val)
+
+
+def average(state: RmsLevelState) -> torch.Tensor:
+    """The average level of RmsLevel::AverageAndPeak (rms_level.cc:126-143)
+    with the kInaudibleButNotMuted bump, (B,) int32; the caller keeps or
+    resets the state."""
+    have = state.sample_count > 0
+    mean = state.sum_square / torch.clamp(state.sample_count, min=1).to(
+        torch.float32)
+    avg = torch.where(have, _compute_rms(mean), MIN_LEVEL_DB)
+    return torch.where(
+        have & (avg == MIN_LEVEL_DB) & (state.sum_square != 0.0),
+        INAUDIBLE_BUT_NOT_MUTED, avg).to(torch.int32)

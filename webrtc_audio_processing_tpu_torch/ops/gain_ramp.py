@@ -34,3 +34,12 @@ def ramped_gains_applier(last_gain, current_gain, num_samples: int):
     i = torch.arange(num_samples, dtype=last_gain.dtype,
                      device=last_gain.device)
     return last_gain[..., None] + inc[..., None] * i
+
+
+def apply_scaler(prev_gain, target_gain, x):
+    """Scale a (B, N, ...) frame with the AudioSamplesScaler ramp and the
+    S16 clamp (audio_samples_scaler.cc:25-95); gains (B,). Returns (y,
+    new_prev_gain)."""
+    g = ramped_gains_scaler(prev_gain, target_gain, x.shape[1])
+    g = g.reshape(g.shape + (1,) * (x.dim() - 2))
+    return torch.clamp(x * g, -32768.0, 32767.0), target_gain

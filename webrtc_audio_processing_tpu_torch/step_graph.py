@@ -24,6 +24,11 @@ Usage, with ``state`` from ``apm.init_state`` on the card::
 
 ``step_pair`` is the same body run eagerly, on any device: one call is
 what one replay does.
+
+``FrameGraphs`` is the one-frame step as two graphs, one per frame parity,
+over one owned state and one memory pool, replayed alternately: the
+counterpart of ``api.py``'s ``jax.jit`` of each parity and the step that
+``runtime.BatchEngine`` drives one frame a call.
 """
 
 from __future__ import annotations
@@ -110,6 +115,29 @@ def _check_even(state: apm.ApmState) -> None:
             f"{state.frame_counter}")
 
 
+def _card_of(state: apm.ApmState) -> torch.device:
+    dev = state.frame_parity.device
+    if dev.type != "cuda":
+        raise ValueError(f"a CUDA graph needs the state on the card, not "
+                         f"on {dev}")
+    return dev
+
+
+def _warm_up(stream, state: apm.ApmState, body) -> None:
+    """Run ``body`` on a copy of ``state`` on the capture's ``stream``: it
+    builds the kernels, cuFFT's plans, the cached constant tables and the
+    stream's cuBLAS workspace, none of which may happen inside a capture."""
+    dev = stream.device
+    scratch = copy.deepcopy(state)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        body(scratch)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize(dev)
+    del scratch
+    torch.cuda.empty_cache()
+
+
 def pair_body(module: apm.Apm, state: apm.ApmState, r0, c0, r1, c1):
     """Frames 0 and 1 of a pair from ``state`` (at an even frame), every
     new leaf copied back into ``state``; its frame counter is the caller's
@@ -135,10 +163,7 @@ class PairGraph:
     which the graph owns from here on: replays advance it in place."""
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
-        dev = state.frame_parity.device
-        if dev.type != "cuda":
-            raise ValueError(f"a CUDA graph needs the state on the card, not "
-                             f"on {dev}")
+        dev = _card_of(state)
         if geo.aec3 is None:
             raise ValueError("the pair step is the AEC3 cadence; this "
                              "geometry runs no echo canceller")
@@ -158,19 +183,8 @@ class PairGraph:
         self.graph = None
         self.outputs = None
         self.capture_seconds = None
-        # One pair of warm-up on a copy, on the capture's stream: builds the
-        # kernels, cuFFT's plans, the cached constant tables and the
-        # stream's cuBLAS workspace, none of which may happen inside the
-        # capture.
-        scratch = copy.deepcopy(state)
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self.stream):
-            pair_body(self.module, scratch, self.r0, self.c0, self.r1,
-                      self.c1)
-        torch.cuda.current_stream(dev).wait_stream(self.stream)
-        torch.cuda.synchronize(dev)
-        del scratch
-        torch.cuda.empty_cache()
+        _warm_up(self.stream, state, lambda scratch: pair_body(
+            self.module, scratch, self.r0, self.c0, self.r1, self.c1))
 
     def capture(self) -> None:
         """Record the pair body; nothing runs and the state stays as it
@@ -204,3 +218,87 @@ class PairGraph:
         self.graph.replay()
         self.state.frame_counter += 2
         return self.outputs
+
+
+def frame_body(module: apm.Apm, state: apm.ApmState, render, capture):
+    """One frame from ``state``, every new leaf copied back into it; its
+    frame counter is the caller's to advance. Returns (out, render_out,
+    stats)."""
+    s, out, render_out, stats = module(state, capture, render)
+    copy_into(state, s)
+    return out, render_out, stats
+
+
+class FrameGraphs:
+    """The one-frame step of ``geo`` captured as two CUDA graphs, the even
+    and the odd frame, over ``state``, which they own from here on.
+
+    Both graphs read and write the same owned leaves and share one memory
+    pool; they replay alternately, the even one first, in the order of
+    their capture. AEC3's block ordinal advances by 2 or 3 on the device
+    inside each graph. Each graph's outputs are its own tensors,
+    overwritten by its next replay.
+    """
+
+    def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
+        dev = _card_of(state)
+        _check_even(state)
+        untie(state)
+        self.state, self.device = state, dev
+        self.module = apm.module_for(geo, dev)
+        B = state.frame_parity.shape[0]
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.render = torch.zeros(
+            (B, geo.render_input_rate // 100, geo.num_render_channels), **f32)
+        self.capture = torch.zeros(
+            (B, geo.capture_input_rate // 100, geo.num_capture_channels),
+            **f32)
+        self.stream = torch.cuda.Stream(dev)
+        self.graphs = None
+        self.outputs = None
+        self.capture_seconds = None
+        _warm_up(self.stream, state, self._warm_body)
+
+    def _warm_body(self, scratch):
+        for _ in range(2):  # both parities
+            frame_body(self.module, scratch, self.render, self.capture)
+            scratch.frame_counter += 1
+
+    def capture_graphs(self) -> None:
+        """Record the even frame, then the odd one with the frame counter
+        set to odd for the capture only; nothing runs and the state stays
+        as it is. A failure raises: there is no eager path behind the
+        graphs."""
+        if self.graphs is not None:
+            raise RuntimeError("the frame step is captured already")
+        _check_even(self.state)
+        graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        outputs = []
+        t0 = time.perf_counter()
+        pool = None
+        for parity, graph in enumerate(graphs):
+            self.state.frame_counter += parity
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+                    outputs.append(frame_body(self.module, self.state,
+                                              self.render, self.capture))
+            finally:
+                self.state.frame_counter -= parity
+            pool = graph.pool()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+        self.graphs, self.outputs = graphs, tuple(outputs)
+
+    def replay(self, capture, render):
+        """Copy a frame into the graphs' inputs and replay the graph of the
+        state's parity. Returns its (out, render_out, stats), tensors the
+        graph owns: copy out what you keep before the graph of the same
+        parity replays again."""
+        if self.graphs is None:
+            raise RuntimeError("capture_graphs() before replaying")
+        self.capture.copy_(capture, non_blocking=True)
+        self.render.copy_(render, non_blocking=True)
+        parity = self.state.frame_counter % 2
+        self.graphs[parity].replay()
+        self.state.frame_counter += 1
+        return self.outputs[parity]
