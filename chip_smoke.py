@@ -21,7 +21,9 @@ exits non-zero without a result line:
    spectra below the gains' noise gate; 48 kHz stereo also with window
    starts that jump to the second chain or clamp at either end of it, the
    twin given the clamped starts) against their plain PyTorch twins on
-   the card at the main paths' shapes. Each row gives the call time (CUDA
+   the card at the main paths' shapes; K1 also at the analytics VAD's
+   shapes (phase 11's B = 4096) and AGC1's limiter kernel at phase 11's
+   rows. Each row gives the call time (CUDA
    events around back-to-back calls from Python: what a caller pays, host
    work included), the device time (the calls captured in a CUDA graph and
    replayed: the kernel alone), the device kernels one call runs, the twin's
@@ -81,24 +83,46 @@ exits non-zero without a result line:
    B), ``get_statistics().delay_ms`` the direct path's delay, ERLE above
    6 dB and the launches as ``expected_aec3_launches`` gives. It prints the
    host ms per frame (reverse + capture) and the device kernels per frame.
-10. ``engine_default_48k``: ``runtime.StreamingPlane`` and
-   ``BatchEngine`` on ``runtime.apm_step_fn``'s step (the one-frame step
-   captured as one graph per frame parity, ``step_graph.FrameGraphs``) at
-   B = 4096 of ``default_48k``: the first 120 frames of phase 4's scene
-   through the plane, producer threads filling the queues before the
-   engine steps, bit-equal on the checked streams to phase 4's eager
-   outputs; then 40 frames in which every 8th stream misses every 5th
-   frame, bit-equal to an eager ``process_stream_pair`` fed zeros there;
-   frames processed and dropped per stream as pushed. It prints host ms
-   per frame of the pushes, ``collect_batch``, the host-to-device copy and
-   the replay, the device-to-host copy and ``distribute_batch``, and the
-   engine's whole step; the real-time streams beside phase 7's graphed
-   ``default_48k``; the peak device memory.
+10. ``engine_default_48k``: ``runtime.StreamingPlane`` and ``BatchEngine``
+   on ``runtime.apm_step_fn``'s step (the one-frame step captured as one
+   graph per frame of the period, ``step_graph.FrameGraphs``) at B = 4096
+   of ``default_48k``: the first 120 frames of phase 4's scene through the
+   plane, producer threads filling the queues before the engine steps,
+   bit-equal on the checked streams to phase 4's eager outputs; then 40
+   frames in which every 8th stream misses every 5th frame, bit-equal to an
+   eager ``process_stream_pair`` fed zeros there; frames processed and
+   dropped per stream as pushed. It prints host ms per frame of the pushes,
+   ``collect_batch``, the host-to-device copy and the replay, the
+   device-to-host copy and ``distribute_batch``, and the engine's whole
+   step; the real-time streams beside phase 7's graphed ``default_48k``;
+   the peak device memory.
+11. ``agc1_hybrid_48k``: ``Config()``'s pipeline at 48 kHz stereo with HPF,
+   AEC3, NS and ``GainController1(enabled=True)`` (adaptive analog through
+   the hybrid AgcManagerDirect with its analytics VAD, the layout of
+   PulseAudio's WebRTC echo canceller), AGC2 off, B = 4096 for 600 frames
+   (the main path's 300-frame echo scene twice), the odd streams also
+   carrying a quiet voiced near end (tests/test_agc_manager_apm.py's
+   ``_voiced`` at 0.1 of full scale, ``AGC1_VOICE_AMP``), the applied
+   volume starting at 100 and taking frame 1's recommended level on the
+   device between pairs. First 60 frames eagerly
+   (``step_graph.step_pair``, the volume closed the same way), counting every
+   kernel's launches, AGC1's limiter (``agc1_limiter``) and the analytics
+   VAD's K1 cascades among them; then the whole run through
+   ``step_graph.PairGraph`` at the cadence's period 6 (three pair graphs),
+   bit-equal to the eager run on the checked streams over its 60 frames
+   (outputs, delays, recommended levels), with no host sync in a replay;
+   the odd checked streams' level ends above 100, the even ones' ERLE over
+   the last third is above 6 dB; and one pair from the card's state before
+   frame 560 rerun on the CPU for the checked streams: relative RMS <=
+   1e-5 and AGC1's and the manager's integer leaves equal. It prints the
+   graphed ms per frame (host clock and CUDA events), real-time streams,
+   device kernels per frame, the captures' seconds and the peak device
+   memory, beside phase 7's graphed ``default_48k``.
 
 Before the last line the kernel table as JSON (each kernel's
-``launches`` from the main path, K6's from ``pair_kernel_48k``, and
-``launches_by_path`` from every path, phases 9 and 10 included), then the
-result JSON. The script
+``launches`` from the main path, K6's from ``pair_kernel_48k``, AGC1's
+limiter's from ``agc1_hybrid_48k``, and ``launches_by_path`` from every
+path, phases 9-11 included), then the result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -437,6 +461,7 @@ def _k4_case(dev, seg, h0, al, y, rate):
 def kernels_phase(dev):
     from webrtc_audio_processing_tpu_torch.models import post_filter
     from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
+    from webrtc_audio_processing_tpu_torch.models.vad import analytics_vad
     from webrtc_audio_processing_tpu_torch.ops import (
         biquad,
         cuda_span,
@@ -471,6 +496,32 @@ def kernels_phase(dev):
             2 * 4096, allpass=True),
         "default_48k_decimator": _k1_case(
             dev, main_rng, np.concatenate([aa, nr]), 64, 4096),
+    })
+    # The analytics VAD's cascades at phase 11's B = 4096 (one capture
+    # channel): its pole-zero HPF every frame; on phase 2 the pre-filter
+    # bank's input-HPF poles, composite all-pass (both channels' lanes)
+    # and branch all-passes (main and lookahead signals' lanes), the pitch
+    # analysis's HPF, its decimator's all-pass and the decimated low-pass.
+    av = analytics_vad
+    vad_rng = np.random.default_rng(SEED + 107)
+    others.update({
+        "agc1_vad_pole_zero_hpf": _k1_case(dev, vad_rng, av._HPF_ROWS, 160,
+                                           4096),
+        "agc1_vad_input_hpf_poles": _k1_case(dev, vad_rng, av._HP_IN_POLES,
+                                             480, 4096),
+        "agc1_vad_composite_allpass": _k1_case(
+            dev, vad_rng, av._ROWS[id(av.COMPOSITE_AP)], 240, 2 * 4096,
+            allpass=True),
+        "agc1_vad_branch_allpass": _k1_case(
+            dev, vad_rng, av._ROWS[id(av.UPPER_AP)], 240, 2 * 4096,
+            allpass=True),
+        "agc1_vad_pitch_hpf": _k1_case(dev, vad_rng, av._PITCH_HP_ROWS, 240,
+                                       4096),
+        "agc1_vad_decimator_allpass": _k1_case(
+            dev, vad_rng, av._ROWS[id(av.LOWER_AP)], 120, 4096,
+            allpass=True),
+        "agc1_vad_lowpass": _k1_case(dev, vad_rng, av._DEC_LOWPASS, 120,
+                                     4096),
     })
     rows.append(dict(
         name="biquad_cascade", route="cuda",
@@ -608,9 +659,57 @@ def kernels_phase(dev):
         library_note="none: no PyTorch call runs the subtractor loop",
         other_shapes={k: v for k, v in k6.items() if k != "48k_stereo_nb3"},
         **k6["48k_stereo_nb3"]))
+    rows.append(dict(
+        name="agc1_limiter", route="cuda",
+        source="webrtc_audio_processing_tpu_torch/csrc/agc1_limiter.cu",
+        replaces=("webrtc_audio_processing_tpu/models/agc1/digital.py:397 "
+                  "(lax.while_loop, not a Pallas kernel: port-only)"),
+        library_ms=None, library_device_ms=None,
+        library_note="none: no PyTorch call runs a data-dependent loop",
+        **limiter_case(dev, np.random.default_rng(SEED + 108))))
     for r in rows:
         phase("kernel", **r)
     return rows
+
+
+def limiter_case(dev, rng, N=4096):
+    """AGC1's limiter at phase 11's rows (B = 4096, one channel): gains of
+    the hybrid's 7 dB table and of the worst case over AGC1's range
+    (tools/torch_agc1_limiter_worst.py: the fixed-digital 90 dB table's
+    largest gain, 727 passes on an envelope of 2^25) on a quarter of the
+    rows, envelopes up to full scale. Bit-equal to the twin. The bound is
+    latency: the bytes (0.5 MB) take 0.16 us, the longest row's chain of
+    passes (~20 dependent integer ops each) far longer; the passes the
+    data needs are counted for it."""
+    from webrtc_audio_processing_tpu_torch.models.agc1 import digital
+    from webrtc_audio_processing_tpu_torch.ops import cuda_agc1_limiter
+
+    table = digital.calculate_gain_table(7, 2, True, 7)
+    worst = int(digital.calculate_gain_table(90, 0, True, 90).max())
+    gains = rng.choice(table, (N, 11)).astype(np.int64)
+    env = rng.integers(0, 2**30, (N, 10))
+    gains[: N // 4, 1:] = worst
+    env[: N // 4] = 2**25 - 1
+    gains = torch.from_numpy(gains.astype(np.int32)).to(dev)
+    env = torch.from_numpy(env.astype(np.int32)).to(dev)
+    got = cuda_agc1_limiter.limit_cuda(gains, env)
+    want = cuda_agc1_limiter.limit_plain(gains, env)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"the AGC1 limiter differs from its twin: {err}")
+    n = cuda_agc1_limiter.passes(gains.cpu(), env.cpu())
+    ops_per_pass = 20
+    bound, by = _bound_ms(32 * 4 * N, n_ops=ops_per_pass * int(n.sum()),
+                          chain_s=ops_per_pass * int(n.max()) * DEP_OP_S)
+    return dict(
+        max_abs_err=err,
+        **_times(lambda: cuda_agc1_limiter.limit_cuda(gains, env), 200, 50),
+        plain_ms=_event_ms(lambda: cuda_agc1_limiter.limit_plain(gains, env),
+                           2),
+        bound_ms=bound, bound_by=by, passes_max=int(n.max()),
+        passes_mean=float(n.float().mean()),
+        shape=f"N={N} (11 gains, 10 envelopes a row)")
 
 
 # ---------------------------------------------------------------- K6 inputs
@@ -927,6 +1026,7 @@ def select_streams(state, idx, device):
 
 def _kernel_modules():
     from webrtc_audio_processing_tpu_torch.ops import (
+        cuda_agc1_limiter,
         cuda_biquad,
         cuda_matched_filter,
         cuda_pre_echo,
@@ -938,7 +1038,8 @@ def _kernel_modules():
     return {"biquad_cascade": cuda_biquad, "span_gather": cuda_span,
             "matched_filter_nlms": cuda_matched_filter,
             "pre_echo_inst": cuda_pre_echo, "take_windows": cuda_window,
-            "subtractor_pair": cuda_subtractor}
+            "subtractor_pair": cuda_subtractor,
+            "agc1_limiter": cuda_agc1_limiter}
 
 
 def _reset_counts():
@@ -1026,19 +1127,25 @@ def expected_aec3_launches(geo, n_frames):
     render and 5 capture decimations (one launch for both cascades); K2
     the echo remover's four chain reads per frame; K3 and K4 one per
     capture block; K5 one per frame (AGC2's VAD); K6 one per frame on the
-    pair-kernel path."""
+    pair-kernel path. With AGC1 its limiter once a frame, and with the
+    hybrid manager K1 once a frame for the analytics VAD's pole-zero HPF
+    and nine more on the frames of its phase 2 (every third, from frame 2:
+    five in the pre-filter bank, four in the pitch analysis)."""
     pairs, odd = divmod(n_frames, 2)
     blocks = 5 * pairs + 2 * odd
     qmf_directions = 2 * ((geo.capture_processing_rate == 32000)
                           + (geo.render_processing_rate == 32000))
     per_frame = (geo.hpf_enabled + geo.post_filter_enabled
                  + 2 * qmf_directions)
-    return {"biquad_cascade": per_frame * n_frames + 2 * blocks,
+    vad = n_frames + 9 * (n_frames // 3) if geo.agc1_hybrid else 0
+    return {"biquad_cascade": per_frame * n_frames + 2 * blocks + vad,
             "span_gather": 4 * n_frames,
             "matched_filter_nlms": blocks, "pre_echo_inst": blocks,
             "take_windows": n_frames if geo.config.gain_controller2.enabled
             else 0,
-            "subtractor_pair": n_frames if geo.aec3.pair_kernel else 0}
+            "subtractor_pair": n_frames if geo.aec3.pair_kernel else 0,
+            "agc1_limiter": (n_frames if geo.config.gain_controller1.enabled
+                             else 0)}
 
 
 @functools.lru_cache(maxsize=1)
@@ -1622,6 +1729,262 @@ def engine_phase(dev, smi, eager_out, graphed_streams):
 # ----------------------------------------------------------- slice-1 path
 
 
+# ------------------------------------------------------ AGC1 hybrid path
+
+AGC1_BATCH = 4096
+AGC1_FRAMES = 600  # the 300-frame scene twice
+AGC1_EAGER = 60  # frames run eagerly, then held to the graph
+AGC1_CHECK = (0, 1, 4094, 4095)  # even: echo only; odd: echo and speech
+AGC1_CPU_PAIR = 280  # the pair from frame 560: the analytics VAD's phase 2
+AGC1_START_LEVEL = 100
+AGC1_CPU_RTOL = 1e-5
+# The near end's level: 0.1 of full scale. At 0.02 (the level of
+# tests/test_agc_manager_apm.py, which has no echo) and at 0.05 the
+# hybrid AGC leaves stream 4095's level at 100 for 600 frames under the
+# scene's residual echo, in the JAX package as in the port; at 0.1 both
+# raise it from frame 137, equal on every frame (16 kHz mono on this
+# scene's streams 4094 and 4095: tests/torch_agc1_voice_level.py).
+AGC1_VOICE_AMP = 0.1
+
+
+def agc1_geometry():
+    """``Config()``'s pipeline at 48 kHz stereo with HPF, AEC3, NS and
+    AGC1's defaults (adaptive analog through AgcManagerDirect), AGC2
+    off."""
+    from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+
+    c = cfg_mod.Config().replace(
+        high_pass_filter=cfg_mod.HighPassFilter(enabled=True),
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True),
+        noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
+        gain_controller1=cfg_mod.GainController1(enabled=True))
+    return apm.ApmGeometry.create(c, 48000, 2, render_input_rate=48000,
+                                  num_render_channels=2)
+
+
+def voiced_near_end(n, rate, seed, amp=AGC1_VOICE_AMP):
+    """tests/test_agc_manager_apm.py:11-19's ``_voiced`` (a pitch near
+    120 Hz with harmonics and a slow envelope) at ``amp`` of full scale,
+    its pitch's phase from ``seed``."""
+    t = np.arange(n) / rate
+    p0 = np.random.default_rng(seed).uniform(0, 2 * np.pi)
+    f0 = 120 * (1 + 0.05 * np.sin(2 * np.pi * 3.0 * t + p0))
+    ph = 2 * np.pi * np.cumsum(f0) / rate
+    w = {1: 0.3, 2: 0.6, 3: 1.0, 4: 1.0, 5: 0.7}
+    saw = sum(w.get(k, 1.0 / k) * np.sin(k * ph) for k in range(1, 10))
+    x = saw * (0.7 + 0.3 * np.sin(2 * np.pi * 1.5 * t))
+    return (amp * x / np.abs(x).max()).astype(np.float32)
+
+
+def _agc1_leaves(state) -> dict:
+    """The integer and bool leaves of AGC1's and the manager's state."""
+    from webrtc_audio_processing_tpu_torch import apm
+
+    out = {}
+    for name in ("agc1", "agc_mgr"):
+        for k, v in apm.state_to_numpy(getattr(state, name)).items():
+            if v.dtype.kind in "iub":
+                out[f"{name}.{k}"] = v
+    return out
+
+
+def agc1_hybrid_phase(dev, smi, main_streams):
+    """Phase 11: ``agc1_hybrid_48k``, eager then graphed at period 6; see
+    the module docstring. ``main_streams``: phase 7's graphed
+    ``default_48k`` real-time streams, printed beside. Returns (the eager
+    run's launches, the graphed run's: captured per period x periods)."""
+    from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
+
+    rate, channels = 48000, 2
+    frame, Bp = rate // 100, AGC1_BATCH
+    geo = agc1_geometry()
+    period = apm.parity_period(geo)
+    if period != 6:
+        raise AssertionError(f"the hybrid AGC's period is {period}, not 6")
+    t0 = time.perf_counter()
+    render, capture = _scene("default_48k", Bp)
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    voice = torch.from_numpy(voiced_near_end(capture.shape[1], rate,
+                                             SEED)).to(dev)
+    cap_dev[1::2] += voice[None, :, None]
+    setup_s = time.perf_counter() - t0
+    idx = torch.tensor(AGC1_CHECK, device=dev)
+    rec = "agc1_recommended_level"
+
+    def frames(p):
+        """The pair p of the scene played in a loop."""
+        p %= AEC3_FRAMES // 2
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    def keep(outs, levels, delays, pair_outs):
+        for out, _, stats in pair_outs:
+            outs.append(out[idx])
+            levels.append(stats[rec][idx])
+            delays.append(stats["delay_ms"][idx])
+
+    # Eager: the pair body itself, the volume taking frame 1's
+    # recommendation on the device between pairs, as between replays.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = apm.init_state(geo, Bp)
+    volume = torch.full((Bp,), AGC1_START_LEVEL, dtype=torch.int32,
+                        device=dev)
+    e_outs, e_levels, e_delays = [], [], []
+    _reset_counts()
+    t1 = time.perf_counter()
+    for p in range(AGC1_EAGER // 2):
+        pair_outs = step_graph.step_pair(geo, state, *frames(p), volume)
+        volume.copy_(pair_outs[1][2][rec])
+        keep(e_outs, e_levels, e_delays, pair_outs)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1000.0 / AGC1_EAGER
+    eager_launches = _counts()
+    want = expected_aec3_launches(geo, AGC1_EAGER)
+    if eager_launches != want:
+        raise AssertionError(f"agc1_hybrid_48k launches {eager_launches}, "
+                             f"expected {want}")
+    del state
+
+    # Graphed from init_state: three pair graphs over one state.
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, Bp))
+    graph.volume.fill_(AGC1_START_LEVEL)
+    reserved = torch.cuda.memory_reserved()
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+    pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    want = expected_aec3_launches(geo, period)
+    if captured != want:
+        raise AssertionError(f"agc1_hybrid_48k captured {captured} launches "
+                             f"a period, expected {want}")
+    replays = AGC1_FRAMES // 2
+    first_timed = replays - AEC3_TIMED // 2
+    timer_start = torch.cuda.Event(enable_timing=True)
+    timer_end = torch.cuda.Event(enable_timing=True)
+    g_outs, g_levels, g_delays, finite = [], [], [], []
+    syncs = None
+    for p in range(replays):
+        if p == AGC1_CPU_PAIR:
+            before = select_streams(graph.state, idx, "cpu")
+            before_volume = graph.volume[idx].cpu()
+        if p == first_timed:
+            torch.cuda.synchronize()
+            host_t0 = time.perf_counter()
+            timer_start.record()
+        if p == first_timed - 1:
+            out_pair = []
+            syncs = _sync_count(lambda: out_pair.append(
+                graph.replay(*frames(p))))
+            pair_outs = out_pair[0]
+        else:
+            pair_outs = graph.replay(*frames(p))
+        graph.volume.copy_(pair_outs[1][2][rec])
+        keep(g_outs, g_levels, g_delays, pair_outs)
+        finite.append(torch.stack([torch.isfinite(o).all()
+                                   for o, _, _ in pair_outs]).all())
+        if p == AGC1_CPU_PAIR:
+            after = select_streams(graph.state, idx, "cpu")
+            card_pair = [o[idx].cpu() for o, _, _ in pair_outs]
+    timer_end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host_t0) * 1000.0 / AEC3_TIMED
+    dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
+    kernels = bench.device_kernels(
+        [lambda: graph.replay(*frames(replays - 1))],
+        [lambda: graph.replay(*frames(replays - 1))] * 2) / 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite output on agc1_hybrid_48k")
+
+    # The graph against the eager run, frame by frame.
+    def stacked(xs):
+        return torch.stack(xs, dim=1).cpu().numpy()
+
+    ge_out = torch.cat(g_outs[:AGC1_EAGER], dim=1).cpu().numpy()
+    ee_out = torch.cat(e_outs, dim=1).cpu().numpy()
+    same_out = bool(np.array_equal(ge_out, ee_out))
+    same_levels = bool(np.array_equal(stacked(g_levels[:AGC1_EAGER]),
+                                      stacked(e_levels)))
+    same_delay = bool(np.array_equal(stacked(g_delays[:AGC1_EAGER]),
+                                     stacked(e_delays)))
+    levels = stacked(g_levels)  # (S, frames)
+    # The last pass over the scene.
+    got_out = torch.cat(g_outs[-AEC3_FRAMES:], dim=1).cpu().numpy()
+    even = [i for i, s in enumerate(AGC1_CHECK) if s % 2 == 0]
+    odd = [i for i, s in enumerate(AGC1_CHECK) if s % 2 == 1]
+    check = list(AGC1_CHECK)
+    erle = erle_db(capture[[check[i] for i in even]],
+                   render[[check[i] for i in even]], got_out[even], frame)
+
+    # One pair on the CPU from the card's state before frame 560.
+    t2 = time.perf_counter()
+    cpu_state = before
+    cpu_outs = step_graph.step_pair(
+        geo, cpu_state, *(x[idx].cpu() for x in frames(AGC1_CPU_PAIR)),
+        before_volume)
+    cpu_rel = [float(np.sqrt(((c[0].numpy() - g.numpy()) ** 2).sum(
+        axis=(1, 2)) / (g.numpy() ** 2).sum(axis=(1, 2))).max())
+        for c, g in zip(cpu_outs, card_pair)]
+    card_ints, cpu_ints = _agc1_leaves(after), _agc1_leaves(cpu_state)
+    int_diff = sorted(k for k in card_ints
+                      if not np.array_equal(card_ints[k], cpu_ints[k]))
+    cpu_s = time.perf_counter() - t2
+
+    # Every stream's last recommendation is the graph's volume input.
+    final = graph.volume.cpu().numpy()
+    raised_share = float((final[1::2] > AGC1_START_LEVEL).mean())
+    even_moved_share = float((final[0::2] != AGC1_START_LEVEL).mean())
+    launches = {k: v * (replays // (period // 2))
+                for k, v in captured.items()}
+    main_ms = 10.0 * 4096 / main_streams
+    phase("agc1_hybrid_48k", streams=Bp, frames=AGC1_FRAMES,
+          voice_amplitude=AGC1_VOICE_AMP,
+          eager_frames=AGC1_EAGER, period=period,
+          eager_ms_per_frame=eager_ms, eager_launches=eager_launches,
+          launches_captured_per_period=captured, launches=launches,
+          timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
+          event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          device_kernels_per_frame=kernels,
+          capture_seconds=graph.capture_seconds, peak_mem_gb=peak_gb,
+          graph_pool_gb=pool_gb, host_syncs_per_replay=syncs[0],
+          host_sync_sites=syncs[1],
+          bit_equal_to_eager=same_out and same_levels and same_delay,
+          outputs_equal=same_out, levels_equal=same_levels,
+          delay_ms_equal=same_delay,
+          final_levels=dict(zip(map(str, AGC1_CHECK),
+                                levels[:, -1].tolist())),
+          odd_streams_raised_share=raised_share,
+          even_streams_moved_share=even_moved_share,
+          level_track=dict(zip(map(str, AGC1_CHECK),
+                               levels[:, ::60].tolist())),
+          erle_db=dict(zip(map(str, [check[i] for i in even]),
+                           erle.tolist())),
+          cpu_pair_rel_rms=cpu_rel, cpu_int_leaves_differing=int_diff,
+          cpu_seconds=round(cpu_s, 3), input_seconds=round(setup_s, 3),
+          default_48k_graphed_ms_per_frame=main_ms,
+          default_48k_graphed_realtime_streams=main_streams, card=smi)
+    if not (same_out and same_levels and same_delay):
+        raise AssertionError(
+            f"agc1_hybrid_48k graphed differs from eager: outputs "
+            f"{same_out}, levels {same_levels}, delays {same_delay}")
+    if syncs[0]:
+        raise AssertionError(f"{syncs[0]} host syncs in a replay: "
+                             f"{syncs[1]}")
+    if not (levels[odd, -1] > AGC1_START_LEVEL).all():
+        raise AssertionError(f"the AGC did not raise the speech streams' "
+                             f"level: {levels[odd, -1]}")
+    if not (erle > ERLE_BAR_DB).all():
+        raise AssertionError(f"ERLE {erle} dB not above {ERLE_BAR_DB} dB")
+    if max(cpu_rel) > AGC1_CPU_RTOL or int_diff:
+        raise AssertionError(f"the CPU pair differs from the card's: rel RMS "
+                             f"{cpu_rel}, integer leaves {int_diff}")
+    return eager_launches, launches
+
+
 def slice_config(cfg_mod):
     return cfg_mod.Config().replace(
         pipeline=cfg_mod.Pipeline(multi_channel_capture=True,
@@ -1784,16 +2147,22 @@ def main(argv=None):
     launches["engine_default_48k"] = engine_phase(
         dev, smi, eager_out["default_48k"], streams["default_48k_graphed"])
     t6 = time.perf_counter()
+    (launches["agc1_hybrid_48k"],
+     launches["agc1_hybrid_48k_graphed"]) = agc1_hybrid_phase(
+        dev, smi, streams["default_48k_graphed"])
+    t7 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
-          engine_default_48k=round(t6 - t5, 3), total=round(t6 - t_all, 3))
+          engine_default_48k=round(t6 - t5, 3),
+          agc1_hybrid_48k=round(t7 - t6, 3), total=round(t7 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
-    # pair-kernel path, K1-K5 on the main path (the default pipeline); every
-    # path beside them, the graphed ones as launches captured per pair x
-    # replays.
+    # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K1-K5 on
+    # the main path (the default pipeline); every path beside them, the
+    # graphed ones as launches captured per pair (or period) x replays.
+    main_paths = {"subtractor_pair": "pair_kernel_48k",
+                  "agc1_limiter": "agc1_hybrid_48k"}
     for r in rows:
-        main_path = ("pair_kernel_48k" if r["name"] == "subtractor_pair"
-                     else "default_48k")
+        main_path = main_paths.get(r["name"], "default_48k")
         r["launches"] = launches[main_path][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -187,7 +187,10 @@ def test_render_only_and_capture_only_steps():
 _UNPORTED = {
     "aecm": dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True,
                                                       mobile_mode=True)),
-    "agc1": dict(gain_controller1=cfg_mod.GainController1(enabled=True)),
+    # AGC1 runs in the port: with it, the mobile AECM still raises.
+    "agc1": dict(gain_controller1=cfg_mod.GainController1(enabled=True),
+                 echo_canceller=cfg_mod.EchoCanceller(enabled=True,
+                                                      mobile_mode=True)),
 }
 
 

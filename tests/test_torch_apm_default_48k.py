@@ -37,7 +37,8 @@ MODE = "default_48k"
 # launches) against the launches chip_smoke.py expects on the card.
 WRAPPERS = {"biquad_cascade": "cascade", "span_gather": "span_gather",
             "matched_filter_nlms": "nlms", "pre_echo_inst": "pre_echo_inst",
-            "take_windows": "take_windows", "subtractor_pair": "pair"}
+            "take_windows": "take_windows", "subtractor_pair": "pair",
+            "agc1_limiter": "limit"}
 
 
 def geometry(m):

@@ -6,6 +6,8 @@ machine with a card (no JAX needed):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -642,3 +644,242 @@ def test_streaming_plane_builds_into_the_build_directory(device):
 
     path = streaming._build_library()
     assert path.parent == cuda_build.BUILD_DIR and path.exists()
+
+
+# ------------------------------------------------------------------ AGC1
+
+
+def _agc1_16k_geometry(hybrid=True, mode=cfg_mod.Agc1Mode.ADAPTIVE_ANALOG):
+    """16 kHz mono with HPF, AEC3, NS and AGC1 (the hybrid manager unless
+    ``hybrid`` is false)."""
+    return apm.ApmGeometry.create(cfg_mod.Config().replace(
+        high_pass_filter=cfg_mod.HighPassFilter(enabled=True),
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True),
+        noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
+        gain_controller1=cfg_mod.GainController1(
+            enabled=True, mode=mode,
+            analog_gain_controller=cfg_mod.AnalogGainController(
+                enabled=hybrid))), 16000, 1)
+
+
+def _agc1_scene(n_frames, batch, seed):
+    render, capture = chip_smoke.echo_scene(n_frames, seed, range(batch),
+                                            16000, 1)
+    capture[1::2, :, 0] += chip_smoke.voiced_near_end(capture.shape[1],
+                                                      16000, seed)
+    return render, capture
+
+
+def _eager_to(geo, state, ren, cap, frames, volume):
+    """``frames`` (even) eager frames of the scene on ``state`` in pairs,
+    the volume taking frame 1's recommendation between pairs."""
+    for p in range(frames // 2):
+        args = []
+        for f in (2 * p, 2 * p + 1):
+            sl = slice(f * 160, (f + 1) * 160)
+            args += [ren[:, sl], cap[:, sl]]
+        outs = step_graph.step_pair(geo, state, *args, volume=volume)
+        volume.copy_(outs[1][2]["agc1_recommended_level"])
+
+
+@pytest.mark.parametrize("start", [0, 2, 4])
+def test_pair_graph_at_period_6_equals_eager(device, start):
+    """The hybrid AGC's cadence: three pair graphs, built from a state at
+    frame ``start`` (each graph must replay at the phase it was captured
+    at), replayed in turn for 30 pairs at B = 4, the volume taking each
+    pair's last recommendation on the device between replays, against the
+    same pairs run eagerly: outputs, levels, delays and at the end every
+    state leaf bit for bit."""
+    geo = _agc1_16k_geometry()
+    n_pairs = 30
+    render, capture = _agc1_scene(start + 2 * n_pairs, 4, 11)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    volume = torch.full((4,), 100, dtype=torch.int32, device=device)
+    eager = apm.init_state(geo, 4, device)
+    _eager_to(geo, eager, ren, cap, start, volume)
+    graph = step_graph.PairGraph(geo, copy.deepcopy(eager))
+    graph.volume.copy_(volume)
+    graph.capture()
+    assert sorted(graph.graphs) == [0, 2, 4]
+    for p in range(start // 2, start // 2 + n_pairs):
+        args = []
+        for f in (2 * p, 2 * p + 1):
+            sl = slice(f * 160, (f + 1) * 160)
+            args += [ren[:, sl], cap[:, sl]]
+        got = graph.replay(*args)
+        graph.volume.copy_(got[1][2]["agc1_recommended_level"])
+        want = step_graph.step_pair(geo, eager, *args, volume=volume)
+        volume.copy_(want[1][2]["agc1_recommended_level"])
+        for (g, _, g_st), (w, _, w_st) in zip(got, want):
+            assert torch.equal(g, w), p
+            for k in ("delay_ms", "agc1_recommended_level"):
+                assert torch.equal(g_st[k], w_st[k]), (p, k)
+    assert torch.equal(graph.volume, volume)
+    got, want = apm.state_to_numpy(graph.state), apm.state_to_numpy(eager)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("start", [0, 2])
+def test_frame_graphs_at_period_6_equal_eager(device, start):
+    """The one-frame step as six graphs at the hybrid AGC's period, built
+    from a state at frame ``start``, replayed in turn for 36 frames at
+    B = 4 with a volume input, against eager frames: outputs, levels and
+    every state leaf bit for bit."""
+    geo = _agc1_16k_geometry()
+    render, capture = _agc1_scene(start + 36, 4, 12)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    volume = torch.full((4,), 120, dtype=torch.int32, device=device)
+    eager = apm.init_state(geo, 4, device)
+    _eager_to(geo, eager, ren, cap, start, volume.clone())
+    graphs = step_graph.FrameGraphs(geo, copy.deepcopy(eager))
+    graphs.volume.copy_(volume)
+    graphs.capture_graphs()
+    assert sorted(graphs.graphs) == list(range(6))
+    for f in range(start, start + 36):
+        sl = slice(f * 160, (f + 1) * 160)
+        g, _, g_st = graphs.replay(cap[:, sl], ren[:, sl])
+        eager, w, _, w_st = apm.process_stream_pair(
+            geo, eager, cap[:, sl], ren[:, sl], applied_input_volume=volume)
+        assert torch.equal(g, w), f
+        assert torch.equal(g_st["agc1_recommended_level"],
+                           w_st["agc1_recommended_level"]), f
+    got, want = apm.state_to_numpy(graphs.state), apm.state_to_numpy(eager)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("rows", [1, 33, 4096])
+def test_agc1_limiter_matches_twin(device, rows):
+    """The limiter kernel against its twin: gains of the worst case over
+    AGC1's range and of random tables, envelopes up to full scale, int32's
+    extremes among them."""
+    from webrtc_audio_processing_tpu_torch.models.agc1 import digital
+    from webrtc_audio_processing_tpu_torch.ops import cuda_agc1_limiter
+
+    rng = np.random.default_rng(rows)
+    table = digital.calculate_gain_table(40, 3, True, 20)
+    gains = rng.choice(table, (rows, 11)).astype(np.int64)
+    env = rng.integers(0, 2**30, (rows, 10))
+    gains[::3, 1:] = int(digital.calculate_gain_table(90, 0, True, 90).max())
+    env[::3] = 2**25 - 1
+    gains[1::7, 3] = 2**31 - 1
+    env[1::7, 2] = 2**30
+    gains = torch.from_numpy(gains.astype(np.int32))
+    env = torch.from_numpy(env.astype(np.int32))
+    before = cuda_agc1_limiter.launches
+    got = cuda_agc1_limiter.limit(gains.to(device), env.to(device))
+    assert cuda_agc1_limiter.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cuda_agc1_limiter.limit(gains, env).numpy())
+
+
+def test_spl_on_the_card_equals_the_cpu(device):
+    """The SPL primitives on int32's extremes and random values, and the
+    downsampler's recurrence, the same bits on the card as on the CPU
+    (shift counts and wrapping products included)."""
+    from webrtc_audio_processing_tpu_torch.ops import spl
+
+    rng = np.random.default_rng(3)
+    edge = [-2**31, 2**31 - 1, 0, 1, -1, 2**30, 32767, -32768]
+    x = torch.from_numpy(np.array(edge + list(rng.integers(
+        -2**31, 2**31, 3000)), np.int32))
+    y = torch.from_numpy(np.array(edge[::-1] + list(rng.integers(
+        -2**31, 2**31, 3000)), np.int32))
+    s = torch.from_numpy(np.array([5, -7, 32767, -32768, 1, 3, 60255, 9]
+                                  + list(rng.integers(-32768, 32768, 3000)),
+                                  np.int32))
+    cases = [(spl.norm_u32, (x,)), (spl.norm_w32, (x,)),
+             (spl.div_w32_w16, (x, s)), (spl.mul_hi16, (x, s)),
+             (spl.scalediff32, (s.abs(), x, y)),
+             (spl.agc_scalediff32, (s, x, y)), (spl.agc_mul32, (x, y)),
+             (spl.sqrt_i32, (x,)), (spl.shl_u32, (x, y & 31))]
+    for fn, args in cases:
+        got = fn(*(a.to(device) for a in args)).cpu()
+        assert torch.equal(got, fn(*args)), fn.__name__
+    frames = torch.from_numpy(rng.integers(-32768, 32768, (64, 160)).astype(
+        np.int32))
+    st = torch.from_numpy(rng.integers(-2**20, 2**20, (64, 8)).astype(
+        np.int32))
+    for a, b in zip(spl.downsample_by_2(frames.to(device), st.to(device)),
+                    spl.downsample_by_2(frames, st)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("rate, mode", [(8000, 0), (16000, 3), (32000, 2)])
+def test_legacy_vad_on_the_card_equals_the_cpu(device, rate, mode):
+    from webrtc_audio_processing_tpu_torch.models.vad import legacy_vad
+
+    rng = np.random.default_rng(rate)
+    L = rate // 100
+    x = torch.from_numpy(np.clip(rng.normal(size=(64, L * 10)) * 4000,
+                                 -32768, 32767).astype(np.int32))
+    vad = legacy_vad.LegacyVad(rate, mode)
+    gpu = legacy_vad.init_state(64, device)
+    cpu = legacy_vad.init_state(64, "cpu")
+    for k in range(10):
+        fr = x[:, k * L:(k + 1) * L]
+        gpu, fg = vad(gpu, fr.to(device))
+        cpu, fc = vad(cpu, fr)
+        assert torch.equal(fg.cpu(), fc), k
+    got, want = apm.state_to_numpy(gpu), apm.state_to_numpy(cpu)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["ADAPTIVE_ANALOG", "ADAPTIVE_DIGITAL",
+                                  "FIXED_DIGITAL"])
+def test_gain_control_on_the_card_equals_the_cpu(device, mode):
+    """GainControlImpl on the same int16 frames on the card and the CPU,
+    two channels, 20 frames: outputs and every state leaf equal (the
+    limiter on its kernel on the card, its twin on the CPU)."""
+    from webrtc_audio_processing_tpu_torch.models.agc1 import gain_control
+
+    c = gain_control.make_config(cfg_mod.GainController1(
+        enabled=True, mode=getattr(cfg_mod.Agc1Mode, mode)), 16000)
+    gc = gain_control.GainControl(c)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(np.clip(rng.normal(size=(8, 1, 160 * 20, 2))
+                                 * 9000, -32768, 32767).astype(np.int32))
+    far = torch.from_numpy(rng.integers(-3000, 3000, (8, 160 * 20)).astype(
+        np.int32))
+    states = {d: gain_control.init_state(c, 2, 8, d) for d in (device, "cpu")}
+    gcs = {device: gc.to(device), "cpu": gain_control.GainControl(c)}
+    for k in range(20):
+        outs = {}
+        for d in (device, "cpu"):
+            st = gain_control.process_render_audio(
+                c, states[d], far[:, k * 160:(k + 1) * 160].to(d))
+            states[d], outs[d] = gcs[d](
+                st, x[:, :, k * 160:(k + 1) * 160].to(d))
+        assert torch.equal(outs[device].cpu(), outs["cpu"]), k
+    got = apm.state_to_numpy(states[device])
+    want = apm.state_to_numpy(states["cpu"])
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("table", ["_HPF_ROWS", "_HP_IN_POLES",
+                                   "_DEC_LOWPASS", "_PITCH_HP_ROWS",
+                                   "composite", "upper", "lower"])
+def test_k1_on_the_analytics_vad_rows_matches_twin(device, table):
+    """K1 on each cascade the analytics VAD runs on it, at 4096 lanes,
+    bit-equal to its twin on the card."""
+    from webrtc_audio_processing_tpu_torch.models.vad import analytics_vad
+
+    av = analytics_vad
+    allpass = table in ("composite", "upper", "lower")
+    rows = (av._ROWS[id(getattr(av, f"{table.upper()}_AP"))] if allpass
+            else getattr(av, table))
+    coeffs = torch.from_numpy(rows).to(device)
+    rng = np.random.default_rng(len(table))
+    K = rows.shape[0]
+    x = torch.from_numpy((rng.standard_normal((240, 4096)) * 3000).astype(
+        np.float32)).to(device)
+    st = torch.from_numpy((rng.standard_normal((4 * K, 4096)) * 1000).astype(
+        np.float32)).to(device)
+    st_k, y_k = cuda_biquad.cascade(coeffs, st, x, allpass=allpass)
+    st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x, allpass=allpass)
+    assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)

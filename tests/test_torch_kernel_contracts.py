@@ -43,6 +43,7 @@ from webrtc_audio_processing_tpu.ops import pallas_mf, pallas_pre_echo
 
 from webrtc_audio_processing_tpu_torch.models import post_filter
 from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
+from webrtc_audio_processing_tpu_torch.models.vad import analytics_vad as av
 from webrtc_audio_processing_tpu_torch.ops import (
     biquad,
     cuda_biquad,
@@ -91,7 +92,19 @@ def _tables():
     tables["decimator"] = np.concatenate([aa, nr])
     tables["qmf_1"] = qmf.allpass_rows(qmf.ALLPASS_COEF_1)
     tables["qmf_2"] = qmf.allpass_rows(qmf.ALLPASS_COEF_2)
+    # The analytics VAD's IIRs on K1 (models/vad/analytics_vad.py).
+    for name, f in (("composite", av.COMPOSITE_AP), ("upper", av.UPPER_AP),
+                    ("lower", av.LOWER_AP)):
+        tables[f"vad_allpass_{name}"] = av._ROWS[id(f)]
+    tables["vad_input_hpf_poles"] = av._HP_IN_POLES
+    tables["vad_decimated_lowpass"] = av._DEC_LOWPASS
+    tables["vad_pitch_hpf"] = av._PITCH_HP_ROWS
+    tables["vad_pole_zero_hpf"] = av._HPF_ROWS
     return tables
+
+
+_ALLPASS_TABLES = {"qmf_1", "qmf_2", "vad_allpass_composite",
+                   "vad_allpass_upper", "vad_allpass_lower"}
 
 
 @pytest.mark.parametrize("table", sorted(_tables()))
@@ -117,7 +130,7 @@ def test_twin_fma_is_single_rounding_on_every_table(table, monkeypatch):
         return got
 
     monkeypatch.setattr(cuda_biquad, "_fused", checking)
-    allpass = table.startswith("qmf")
+    allpass = table in _ALLPASS_TABLES
     cuda_biquad.cascade(coeffs, st, x, allpass=allpass)
     # b0 == 1 or b2 == 1 drops one fused op of a section (module docstring);
     # the all-pass form has one.

@@ -13,7 +13,12 @@ Three step kinds run, eagerly, on the module of the current geometry: the
 render step (``process_reverse_stream`` once the format is known), the
 capture step on the render bands it queued, and the raw pair step (render
 and capture in one, for render queued before the format was known). AEC3's
-block ordinal and the frame parity come from the state, as in ``apm.py``.
+block ordinal and the frame's phase in the cadence (``apm.parity_period``:
+2, or 6 with the hybrid AGC1) come from the state, as in ``apm.py``. The
+analog level loop: ``set_stream_analog_level`` writes AGC1's level into
+the state and is the applied volume of the next frames;
+``recommended_stream_analog_level`` gives AGC2's input volume controller's
+recommendation when it made one, else AGC1's.
 ``AEC3_PAIR_KERNEL=1`` puts the subtractor on K6 as the JAX package's
 switch does (``echo_canceller3.pair_kernel_from_env``).
 
@@ -37,6 +42,7 @@ import torch
 from webrtc_audio_processing_tpu_torch import apm
 from webrtc_audio_processing_tpu_torch import config as cfg_mod
 from webrtc_audio_processing_tpu_torch.models import rms_level
+from webrtc_audio_processing_tpu_torch.models.agc1 import gain_control
 from webrtc_audio_processing_tpu_torch.models.aec3 import (
     echo_canceller3 as ec3,
 )
@@ -268,6 +274,10 @@ class AudioProcessing:
         )
         self._module = apm.module_for(self._geo, self._device)
         self._state = apm.init_state(self._geo, 1, self._device)
+        # A level set before the (lazy, format-driven) initialization
+        # survives it: GainControlImpl keeps analog_capture_level_ across
+        # Initialize (gain_control_impl.cc:265-275, :349).
+        self._write_agc1_level()
 
     # ------------------------------------------------------------ streams
 
@@ -453,10 +463,17 @@ class AudioProcessing:
                     c.capture_level_adjustment, post_gain_factor=float(v)))
                 self._refresh_config(c)
         elif t == RuntimeSetting.CAPTURE_COMPRESSION_GAIN:
-            # Ignored when an input volume controller owns the mic
-            # (audio_processing_impl.cc:1010-1013); AGC1, its only other
-            # consumer, raises at construction.
-            pass
+            # AGC1's compression gain, ignored when an input volume
+            # controller owns the mic (audio_processing_impl.cc:1010-1013):
+            # AGC2's, or the hybrid AGC's manager, which sets it itself.
+            ivc = (c.gain_controller2.enabled
+                   and c.gain_controller2.input_volume_controller.enabled)
+            hybrid = (c.gain_controller1.enabled
+                      and c.gain_controller1.analog_gain_controller.enabled)
+            if not ivc and not hybrid and c.gain_controller1.enabled:
+                c = c.replace(gain_controller1=dataclasses.replace(
+                    c.gain_controller1, compression_gain_db=int(v + 0.5)))
+                self._refresh_config(c)
         elif t == RuntimeSetting.CAPTURE_FIXED_POST_GAIN:
             if c.gain_controller2.enabled:
                 c = c.replace(gain_controller2=dataclasses.replace(
@@ -542,20 +559,33 @@ class AudioProcessing:
                                           cla_cfg.post_gain_factor)))
         self._state = old
 
+    def _write_agc1_level(self):
+        if (self._analog_level is not None and self._state is not None
+                and self._state.agc1 is not None):
+            self._state = dataclasses.replace(
+                self._state, agc1=gain_control.set_stream_analog_level(
+                    self._state.agc1, self._analog_level))
+
     def set_stream_analog_level(self, level: int):
         """set_stream_analog_level (audio_processing.h:590-596): the
         applied mic volume, clamped to [0, 255], that AGC2's input volume
-        controller reads; it survives the lazy initialization."""
+        controller and the hybrid AGC1 read, and AGC1's analog level
+        (GainControlImpl::set_stream_analog_level); it survives the lazy
+        initialization."""
         self._analog_level = int(np.clip(level, 0, 255))
+        self._write_agc1_level()
 
     def recommended_stream_analog_level(self) -> int:
         """recommended_stream_analog_level (audio_processing.h:599-607):
         AGC2's input volume controller's recommendation when it made one,
-        else the level last set (255 when none was)."""
+        else AGC1's recommended level, else the level last set (255 when
+        none was)."""
         st = self._last_stats
         if ("agc2_recommended_input_volume" in st
                 and _item(st, "agc2_recommended_input_volume_valid")):
             return int(_item(st, "agc2_recommended_input_volume"))
+        if "agc1_recommended_level" in st:
+            return int(_item(st, "agc1_recommended_level"))
         return 255 if self._analog_level is None else self._analog_level
 
     def proc_sample_rate_hz(self) -> int:

@@ -8,11 +8,15 @@ band, the two-band QMF or the three-band filter bank), the echo
 controller's mono narrowing, the split-band HPF, NS analyze, AEC3, NS
 process, band merge, the residual echo detector, AGC2 with the internal
 RNN-VAD, the 48 kHz PostFilter, output RMS, copy-out (resampled back to the
-API rate). The render side feeds the echo detector and AEC3 its split
-bands, merges and copies back. API rates 8, 16, 32 and 48 kHz, with 1 or 2
-capture and render channels. The capture levels: the pre-amplifier, the
-capture levels adjuster's pre and post gains, and AGC2's input volume
+API rate). The render side feeds the echo detector, AGC1 and AEC3 its
+split bands, merges and copies back. API rates 8, 16, 32 and 48 kHz, with 1
+or 2 capture and render channels. The capture levels: the pre-amplifier,
+the capture levels adjuster's pre and post gains, and AGC2's input volume
 controller (``GainController2::Analyze`` on the pre-processed capture).
+AGC1 in its three modes: the legacy analysis on the int16 export of the
+split bands, the hybrid ``AgcManagerDirect`` on split band 0 (adaptive
+analog with the analog controller, the config's default) picking the
+digital compression, and the float gain on the bands.
 
 Usage, with B streams on one device::
 
@@ -32,14 +36,18 @@ replays correctly; the AEC3 render rings are updated in place. AEC3's
 subtractor runs as plain PyTorch unless ``aec3_pair_kernel`` is true, when
 it runs on the pair kernel K6
 (``ec3.pair_kernel_from_env`` reads the JAX package's ``AEC3_PAIR_KERNEL``
-switch for a caller that wants it). AECM and AGC1 raise
-``NotImplementedError`` naming their ROADMAP item.
+switch for a caller that wants it). The hybrid AGC's analytics VAD runs on
+a 30 ms cadence, so with it the step's static cadence has period 6
+(``parity_period``): the frame counter gives AEC3 its ``% 2`` and the
+manager its ``% 3``. AECM raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,13 +69,26 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
     echo_canceller3 as ec3,
     multi_channel_content_detector as mccd,
 )
+from webrtc_audio_processing_tpu_torch.models.agc1 import (
+    agc_manager_direct as amd,
+    analog as agc1_analog,
+    digital as agc1_digital,
+    gain_control as gc1,
+)
 from webrtc_audio_processing_tpu_torch.models.agc2 import (
     gain_controller2 as gc2,
 )
+from webrtc_audio_processing_tpu_torch.ops import audio_util
 from webrtc_audio_processing_tpu_torch.ops import batch as batch_ops
 from webrtc_audio_processing_tpu_torch.ops import gain_ramp
 
 DELAY_HISTORY_FRAMES = 100
+
+
+def _to_s16(x: torch.Tensor) -> torch.Tensor:
+    """The int16 export AGC1 analyses, as int32 (the JAX package's
+    ``apm._to_s16``, which rounds then clamps: the same values)."""
+    return audio_util.float_s16_to_s16(x).to(torch.int32)
 
 
 def suitable_process_rate(minimum_rate: int, max_splitting_rate: int,
@@ -86,9 +107,7 @@ def _check_supported(config: cfg_mod.Config) -> None:
     """Raise for every part of the config this port does not run yet."""
     unported = [
         (config.echo_canceller.enabled and config.echo_canceller.mobile_mode,
-         "the mobile echo canceller AECM (ROADMAP Queue 1 item 13)"),
-        (config.gain_controller1.enabled,
-         "AGC1 (ROADMAP Queue 1 item 13)"),
+         "the mobile echo canceller AECM (ROADMAP Queue 1 item 13b)"),
     ]
     for bad, what in unported:
         if bad:
@@ -219,6 +238,14 @@ class ApmGeometry:
         return self.num_capture_channels
 
     @property
+    def agc1_hybrid(self) -> bool:
+        """True when AGC1 runs as AgcManagerDirect with fixed-digital
+        compression (InitializeGainController1,
+        audio_processing_impl.cc:1991-2067)."""
+        c = self.config.gain_controller1
+        return c.enabled and c.analog_gain_controller.enabled
+
+    @property
     def hpf_enabled(self) -> bool:
         """HighPassFilteringRequired (audio_processing_impl.cc:439-442) or
         enforced by the desktop echo canceller (:1883-1890)."""
@@ -283,6 +310,44 @@ class ApmGeometry:
         )
 
 
+def parity_period(geo: ApmGeometry) -> int:
+    """The period of the step's static cadence: AEC3's 2-frame block
+    cycle, and with the hybrid AGC its analytics VAD's 3-frame one
+    (JAX api.py:322-333)."""
+    period = 2
+    if geo.agc1_hybrid:
+        period = math.lcm(period, 3)
+    return period
+
+
+@functools.lru_cache(maxsize=8)
+def hybrid_gain_tables(target_level_dbfs: int = 2) -> np.ndarray:
+    """The (19, 32) gain tables of compression 0..18 dB
+    (SetupDigitalGainControl + WebRtcAgc_set_config): the hybrid path
+    switches compression at run time, so every table is made once and
+    picked by index."""
+    return np.stack([agc1_digital.calculate_gain_table(
+        c, target_level_dbfs, True, c) for c in range(19)])
+
+
+def agc1_config(geo: ApmGeometry) -> agc1_analog.LegacyAgcConfig:
+    """The legacy AGC's static config (JAX apm.py:314-328)."""
+    c = geo.config
+    if geo.agc1_hybrid:
+        # SetupDigitalGainControl (agc_manager_direct.cc:533-552).
+        dda = not c.gain_controller1.analog_gain_controller \
+            .enable_digital_adaptive
+        return agc1_analog.LegacyAgcConfig(
+            agc_mode=agc1_digital.AGC_MODE_FIXED_DIGITAL,
+            fs=min(geo.capture_processing_rate, 16000),
+            target_level_dbfs=0 if dda else 2,
+            compression_gain_db=0 if dda else amd.DEFAULT_COMPRESSION_GAIN,
+            limiter_enable=not dda,
+        )
+    return gc1.make_config(c.gain_controller1,
+                           min(geo.capture_processing_rate, 16000))
+
+
 @dataclass
 class ApmState:
     """The JAX ``ApmState`` fields this chain uses, leaves (B, ...); AEC3's
@@ -295,6 +360,8 @@ class ApmState:
     hpf: hpf.HighPassFilterState | None
     cla: cla.CaptureLevelsAdjusterState | None
     ns: ns.NsState | None
+    agc1: gc1.GainControlState | None
+    agc_mgr: amd.AgcManagerDirectState | None
     aec: ec3.EchoCanceller3State | None
     agc2: gc2.Agc2State | None
     pf: post_filter.PostFilterState | None
@@ -349,6 +416,12 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
              if cla_cfg.enabled else None),
         ns=(ns.init_state(batch, proc_ch, cap_cfg.num_bands, device)
             if c.noise_suppression.enabled else None),
+        agc1=(gc1.init_state(agc1_config(geo), proc_ch, batch, device)
+              if c.gain_controller1.enabled else None),
+        agc_mgr=(amd.init_state(
+            proc_ch, batch, device,
+            c.gain_controller1.analog_gain_controller.clipped_wait_frames)
+            if geo.agc1_hybrid else None),
         aec=ec3.init_state(geo.aec3, batch, device) if has_aec else None,
         agc2=(gc2.init_state(c.gain_controller2, geo.capture_processing_rate,
                              batch, device, num_channels=proc_ch)
@@ -401,6 +474,17 @@ class Apm(nn.Module):
                      if c.gain_controller2.enabled else None)
         self.post_filter = (post_filter.PostFilter()
                             if geo.post_filter_enabled else None)
+        self.agc1 = None
+        self.agc_mgr = None
+        if c.gain_controller1.enabled:
+            self.agc1 = gc1.GainControl(agc1_config(geo))
+        if geo.agc1_hybrid:
+            agc = c.gain_controller1.analog_gain_controller
+            self.agc_mgr = amd.AgcManagerDirect(
+                clipped_level_min=agc.clipped_level_min,
+                disable_digital_adaptive=not agc.enable_digital_adaptive)
+            self.register_buffer("hybrid_tables", torch.from_numpy(
+                hybrid_gain_tables()))
 
     def process_render_stream(self, state: ApmState, render: torch.Tensor,
                               feed_valid=None):
@@ -426,6 +510,19 @@ class Apm(nn.Module):
             rbuf, r = rb.merge_frequency_bands(rbuf, render_bands)
         else:
             render_bands = r[:, None]
+        # AGC1's far-end analysis of the packed mono band 0
+        # (QueueBandedRenderAudio :1671): each channel rounded to int16,
+        # then their integer mean (PackRenderAudioBuffer,
+        # gain_control_impl.cc:130-142).
+        if state.agc1 is not None and feed_valid is not False:
+            ssum = torch.sum(_to_s16(render_bands[:, 0]), -1,
+                             dtype=torch.int32)
+            far = torch.sign(ssum) * (torch.abs(ssum)
+                                      // render_bands.shape[-1])
+            agc1 = gc1.process_render_audio(self.agc1.cfg, state.agc1, far)
+            if feed_valid is not None and feed_valid is not True:
+                agc1 = batch_ops.tree_where(feed_valid, agc1, state.agc1)
+            state = dataclasses.replace(state, agc1=agc1)
         rbuf, render_out = rb.copy_to(rbuf, r)
         return (dataclasses.replace(state, render_buffer=rbuf), render_out,
                 render_bands)
@@ -444,8 +541,9 @@ class Apm(nn.Module):
         ``feed_valid``. ``stream_delay_ms`` is accepted and unused, as on
         the JAX package's desktop path (only AECM reads it).
         ``applied_input_volume``: the mic volume (an int or (B,) int32) for
-        AGC2's input volume controller, 0 when not given. Returns (state,
-        capture_out, render_out, stats), every stats value batch-first.
+        AGC2's input volume controller and the hybrid AGC1, 0 when not
+        given. Returns (state, capture_out, render_out, stats), every stats
+        value batch-first.
         """
         del stream_delay_ms
         geo = self.geo
@@ -497,6 +595,20 @@ class Apm(nn.Module):
                 0 if applied_input_volume is None else applied_input_volume,
                 y)
 
+        # The hybrid AGC's clipping analysis (AnalyzePreProcess,
+        # :1345-1346), after the applied volume is set.
+        new_mgr = state.agc_mgr
+        if new_mgr is not None:
+            agc = c.gain_controller1.analog_gain_controller
+            new_mgr = amd.set_stream_analog_level(
+                new_mgr,
+                0 if applied_input_volume is None else applied_input_volume)
+            new_mgr = amd.analyze_pre_process(
+                new_mgr, y, clipped_level_step=agc.clipped_level_step,
+                clipped_ratio_threshold=agc.clipped_ratio_threshold,
+                clipped_wait_frames=agc.clipped_wait_frames,
+                clipped_level_min=agc.clipped_level_min)
+
         # Band split (:1359-1363).
         if cb.cfg.num_bands > 1:
             cbuf, bands = cb.split_into_frequency_bands(cbuf, y)
@@ -512,6 +624,13 @@ class Apm(nn.Module):
         if self.hpf is not None and not geo.hpf_full_band:
             new_hpf, b0 = self.hpf(state.hpf, bands[:, 0])
             bands = torch.cat([b0[:, None], bands[:, 1:]], dim=1)
+
+        # AGC1's analysis (:1382-1385) on an int16 export of the bands: it
+        # changes AGC1's state only (gain_control_impl.cc:150-195).
+        new_agc1 = state.agc1
+        if new_agc1 is not None:
+            new_agc1, _ = gc1.analyze_capture_audio(
+                self.agc1.cfg, new_agc1, _to_s16(bands))
 
         # NS analyze (pre-AEC, :1387-1391).
         new_ns = state.ns
@@ -532,6 +651,31 @@ class Apm(nn.Module):
         # NS process (:1423-1425).
         if self.ns is not None:
             new_ns, bands = self.ns.process(new_ns, bands)
+
+        # The hybrid AGC (AgcManagerDirect::Process, :1428-1436) on split
+        # band 0 at the analytics VAD's phase; its slewed compression picks
+        # this frame's gain table (the reference applies it on the next
+        # frame: one 0.05 dB step of skew at most, as in the JAX package).
+        table = None
+        if new_mgr is not None:
+            new_mgr, rec_vol, compression, vp = self.agc_mgr(
+                new_mgr, _to_s16(bands[:, 0]), f % 3)
+            stats["agc1_recommended_level"] = rec_vol
+            stats["agc1_voice_probability"] = vp
+            table = self.hybrid_tables[torch.clamp(compression, 0, 18)
+                                       .long()]
+
+        # AGC1 process (:1438-1442): Analyze on a fresh int16 export, then
+        # the impl's float gain on the float bands.
+        if new_agc1 is not None:
+            new_agc1, _ = gc1.process_capture_audio(
+                self.agc1.cfg, new_agc1, _to_s16(bands), False,
+                gain_table=table, return_bands=False)
+            bands = gc1.apply_digital_gain_float(
+                gc1.shared_gains(new_agc1), bands)
+            if new_mgr is None:
+                stats["agc1_recommended_level"] = new_agc1.analog_level
+            stats["agc1_saturation_warning"] = new_agc1.saturation_warning
 
         # Merge bands (:1444-1448).
         if cb.cfg.num_bands > 1:
@@ -570,6 +714,8 @@ class Apm(nn.Module):
             hpf=new_hpf,
             cla=new_cla,
             ns=new_ns,
+            agc1=new_agc1,
+            agc_mgr=new_mgr,
             aec=new_aec,
             agc2=new_agc2,
             pf=new_pf,

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("biquad.cu", "window.cu", "span.cu", "matched_filter.cu",
-           "pre_echo.cu", "subtractor.cu")
+           "pre_echo.cu", "subtractor.cu", "agc1_limiter.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,8 @@ _SIGNATURES = {
     # float and int constants, stream
     "subtractor_pair_f32": (_P,) * 26 + (_I,) * 8 + (
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int), _P),
+    # gains_in, env, gains_out, N, stream
+    "agc1_limiter_i32": (_P, _P, _P, _I, _P),
 }
 
 

@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     if args.aecm:
         raise NotImplementedError(
             "the mobile echo canceller AECM is not ported yet (ROADMAP "
-            "Queue 1 item 13)")
+            "Queue 1 item 13b)")
 
     from webrtc_audio_processing_tpu_torch import config as cfg_mod
     from webrtc_audio_processing_tpu_torch.api import AudioProcessing

@@ -2,8 +2,8 @@
 
 ``apm_step_fn(geo, batch)`` builds the state of ``batch`` streams and the
 engine's ``step_fn(state, capture, render) -> (state, out)``: on the card
-the one-frame step captured as two graphs (``step_graph.FrameGraphs``, one
-per frame parity), on the CPU the eager ``Apm.forward``. As ``apm``'s
+the one-frame step captured as one graph per frame of the cadence's period
+(``step_graph.FrameGraphs``: 2, or 6 with the hybrid AGC1), on the CPU the eager ``Apm.forward``. As ``apm``'s
 entry points, it puts the state on the card unless ``device`` says
 otherwise, and raises when there is no card.
 """

@@ -4,15 +4,24 @@ The counterpart of ``bench.py``'s jitted chunk (bench.py:154-163) and of
 ``api.py``'s ``jax.jit`` of the step: the body is ``bench.py``'s
 ``pair_step`` (:94-105), two ``Apm.forward`` calls, an even frame then an
 odd one, so AEC3 inserts its 5 blocks per pair on a static cadence. It is
-captured once and replayed for every later pair, one graph launch in
-place of the step's ~16,600 kernel launches.
+captured once per pair of the cadence's period (``apm.parity_period``: one
+pair, or three with the hybrid AGC's 30 ms analytics VAD, all over one
+state and one memory pool) and replayed for every later pair, one graph
+launch in place of the step's ~16,600 kernel launches.
+
+The hybrid AGC1's applied mic volume is an input tensor of the graphs,
+``volume``, (B,) int32, read as it stands at each replay: the caller
+closes the analog loop between replays on the device, for example with
+``graph.volume.copy_(stats1["agc1_recommended_level"])``.
 
 A graph replays the addresses it captured, so the state lives in tensors
 the graph owns: each new leaf the two steps make is copied back into the
 leaf it replaces (the AEC3 rings, written in place, are their own leaf),
 and AEC3's block ordinal is a device tensor the body advances by 5. The
-frame counter stays a Python int; it fixes only the parity, and capture
-starts on an even frame.
+frame counter stays a Python int; it fixes only the frame's phase in the
+period (``f % 2`` for AEC3, ``f % 3`` for the analytics VAD). Capture
+starts on an even frame, and each graph is kept under the phase it was
+captured at, so a state at any even frame replays the right one.
 
 Usage, with ``state`` from ``apm.init_state`` on the card::
 
@@ -25,8 +34,8 @@ Usage, with ``state`` from ``apm.init_state`` on the card::
 ``step_pair`` is the same body run eagerly, on any device: one call is
 what one replay does.
 
-``FrameGraphs`` is the one-frame step as two graphs, one per frame parity,
-over one owned state and one memory pool, replayed alternately: the
+``FrameGraphs`` is the one-frame step as one graph per frame of the
+period, over one owned state and one memory pool, replayed in turn: the
 counterpart of ``api.py``'s ``jax.jit`` of each parity and the step that
 ``runtime.BatchEngine`` drives one frame a call.
 """
@@ -138,29 +147,67 @@ def _warm_up(stream, state: apm.ApmState, body) -> None:
     torch.cuda.empty_cache()
 
 
-def pair_body(module: apm.Apm, state: apm.ApmState, r0, c0, r1, c1):
+def pair_body(module: apm.Apm, state: apm.ApmState, r0, c0, r1, c1,
+              volume=None):
     """Frames 0 and 1 of a pair from ``state`` (at an even frame), every
     new leaf copied back into ``state``; its frame counter is the caller's
-    to advance. Returns ((out, render_out, stats) of each frame)."""
-    s, y0, ro0, st0 = module(state, c0, r0)
-    s, y1, ro1, st1 = module(s, c1, r1)
+    to advance. ``volume``: the applied mic volume of both frames, (B,)
+    int32, or None. Returns ((out, render_out, stats) of each frame)."""
+    s, y0, ro0, st0 = module(state, c0, r0, applied_input_volume=volume)
+    s, y1, ro1, st1 = module(s, c1, r1, applied_input_volume=volume)
     copy_into(state, s)
     return (y0, ro0, st0), (y1, ro1, st1)
 
 
-def step_pair(geo: apm.ApmGeometry, state: apm.ApmState, r0, c0, r1, c1):
+def step_pair(geo: apm.ApmGeometry, state: apm.ApmState, r0, c0, r1, c1,
+              volume=None):
     """One replay's work run eagerly: the pair body on ``state`` (untied
     first) in place, then the frame counter advanced by 2."""
     _check_even(state)
     untie(state)
-    outs = pair_body(apm.module_for(geo, c0.device), state, r0, c0, r1, c1)
+    outs = pair_body(apm.module_for(geo, c0.device), state, r0, c0, r1, c1,
+                     volume)
     state.frame_counter += 2
     return outs
 
 
+def _volume_input(geo: apm.ApmGeometry, B: int, dev):
+    """The applied-volume input of a graph: a (B,) int32 tensor where the
+    step reads one (the hybrid AGC1), else None."""
+    if geo.agc1_hybrid:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    return None
+
+
+def _capture_in_turn(stream, state: apm.ApmState, frames: int, n: int,
+                     period: int, body):
+    """Capture ``body`` ``n`` times in one memory pool, the i-th with the
+    frame counter moved on by ``frames * i`` for the capture only, so the
+    graphs replay in the order of their capture. Returns ({the phase in
+    the period each was captured at: (graph, outputs)}, seconds taken);
+    nothing runs and the state stays as it is. A failure raises: there is
+    no eager path behind the graphs."""
+    done, pool = {}, None
+    t0 = time.perf_counter()
+    for i in range(n):
+        graph = torch.cuda.CUDAGraph()
+        state.frame_counter += frames * i
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                outputs = body()
+            phase = state.frame_counter % period
+        finally:
+            state.frame_counter -= frames * i
+        pool = graph.pool()
+        done[phase] = (graph, outputs)
+    torch.cuda.synchronize(stream.device)
+    return done, time.perf_counter() - t0
+
+
 class PairGraph:
-    """The pair step of ``geo`` captured as one CUDA graph over ``state``,
-    which the graph owns from here on: replays advance it in place."""
+    """The pair step of ``geo`` captured as CUDA graphs over ``state``, one
+    per pair of the period, which the graphs own from here on: replays
+    advance it in place."""
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
         dev = _card_of(state)
@@ -179,27 +226,31 @@ class PairGraph:
         cap = (B, geo.capture_input_rate // 100, geo.num_capture_channels)
         self.r0, self.r1 = torch.zeros(ren, **f32), torch.zeros(ren, **f32)
         self.c0, self.c1 = torch.zeros(cap, **f32), torch.zeros(cap, **f32)
+        self.volume = _volume_input(geo, B, dev)
+        self.period = apm.parity_period(geo)
         self.stream = torch.cuda.Stream(dev)
-        self.graph = None
-        self.outputs = None
+        self.graphs = None
         self.capture_seconds = None
-        _warm_up(self.stream, state, lambda scratch: pair_body(
-            self.module, scratch, self.r0, self.c0, self.r1, self.c1))
+        _warm_up(self.stream, state, self._warm_body)
+
+    def _body(self, state):
+        return pair_body(self.module, state, self.r0, self.c0, self.r1,
+                         self.c1, self.volume)
+
+    def _warm_body(self, scratch):
+        for _ in range(self.period // 2):
+            self._body(scratch)
+            scratch.frame_counter += 2
 
     def capture(self) -> None:
-        """Record the pair body; nothing runs and the state stays as it
-        is. A failure raises: there is no eager path behind the graph."""
-        if self.graph is not None:
+        """Record the pair body at each pair of the period, from the
+        state's own; nothing runs and the state stays as it is."""
+        if self.graphs is not None:
             raise RuntimeError("the pair step is captured already")
         _check_even(self.state)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream):
-            outputs = pair_body(self.module, self.state, self.r0, self.c0,
-                                self.r1, self.c1)
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
-        self.graph, self.outputs = graph, outputs
+        self.graphs, self.capture_seconds = _capture_in_turn(
+            self.stream, self.state, 2, self.period // 2, self.period,
+            lambda: self._body(self.state))
 
     def set_ordinal(self, n0: int) -> None:
         """Set AEC3's block ordinal on the device (``bench.py``'s
@@ -207,37 +258,43 @@ class PairGraph:
         self.state.aec3_block_ordinal.fill_(n0)
 
     def replay(self, r0, c0, r1, c1):
-        """Copy a pair's frames into the graph's inputs and replay it. The
-        outputs are the graph's own tensors, overwritten by the next
-        replay: clone what you keep."""
-        if self.graph is None:
+        """Copy a pair's frames into the graphs' inputs and replay the
+        graph of the state's pair in the period (``volume`` is read as it
+        stands). The outputs are the graph's own tensors, overwritten by
+        its next replay: clone what you keep."""
+        if self.graphs is None:
             raise RuntimeError("capture() the pair step before replaying it")
         for dst, src in ((self.r0, r0), (self.c0, c0), (self.r1, r1),
                          (self.c1, c1)):
             dst.copy_(src)
-        self.graph.replay()
+        graph, outputs = self.graphs[self.state.frame_counter % self.period]
+        graph.replay()
         self.state.frame_counter += 2
-        return self.outputs
+        return outputs
 
 
-def frame_body(module: apm.Apm, state: apm.ApmState, render, capture):
+def frame_body(module: apm.Apm, state: apm.ApmState, render, capture,
+               volume=None):
     """One frame from ``state``, every new leaf copied back into it; its
     frame counter is the caller's to advance. Returns (out, render_out,
     stats)."""
-    s, out, render_out, stats = module(state, capture, render)
+    s, out, render_out, stats = module(state, capture, render,
+                                       applied_input_volume=volume)
     copy_into(state, s)
     return out, render_out, stats
 
 
 class FrameGraphs:
-    """The one-frame step of ``geo`` captured as two CUDA graphs, the even
-    and the odd frame, over ``state``, which they own from here on.
+    """The one-frame step of ``geo`` captured as one CUDA graph per frame
+    of the period (``apm.parity_period``: 2, or 6 with the hybrid AGC)
+    over ``state``, which they own from here on.
 
-    Both graphs read and write the same owned leaves and share one memory
-    pool; they replay alternately, the even one first, in the order of
-    their capture. AEC3's block ordinal advances by 2 or 3 on the device
-    inside each graph. Each graph's outputs are its own tensors,
-    overwritten by its next replay.
+    The graphs read and write the same owned leaves and share one memory
+    pool; they replay in turn, in the order of their capture, which starts
+    at the state's frame. AEC3's block ordinal advances by 2 or 3 on the
+    device inside each graph. Each graph's outputs are its own tensors,
+    overwritten by its next replay. The hybrid AGC1's applied volume is
+    the input ``volume``, (B,) int32, read as it stands at each replay.
     """
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
@@ -253,52 +310,42 @@ class FrameGraphs:
         self.capture = torch.zeros(
             (B, geo.capture_input_rate // 100, geo.num_capture_channels),
             **f32)
+        self.volume = _volume_input(geo, B, dev)
+        self.period = apm.parity_period(geo)
         self.stream = torch.cuda.Stream(dev)
         self.graphs = None
-        self.outputs = None
         self.capture_seconds = None
         _warm_up(self.stream, state, self._warm_body)
 
+    def _body(self, state):
+        return frame_body(self.module, state, self.render, self.capture,
+                          self.volume)
+
     def _warm_body(self, scratch):
-        for _ in range(2):  # both parities
-            frame_body(self.module, scratch, self.render, self.capture)
+        for _ in range(self.period):  # every frame of the period
+            self._body(scratch)
             scratch.frame_counter += 1
 
     def capture_graphs(self) -> None:
-        """Record the even frame, then the odd one with the frame counter
-        set to odd for the capture only; nothing runs and the state stays
-        as it is. A failure raises: there is no eager path behind the
-        graphs."""
+        """Record each frame of the period in turn, from the state's own;
+        nothing runs and the state stays as it is."""
         if self.graphs is not None:
             raise RuntimeError("the frame step is captured already")
         _check_even(self.state)
-        graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
-        outputs = []
-        t0 = time.perf_counter()
-        pool = None
-        for parity, graph in enumerate(graphs):
-            self.state.frame_counter += parity
-            try:
-                with torch.cuda.graph(graph, pool=pool, stream=self.stream):
-                    outputs.append(frame_body(self.module, self.state,
-                                              self.render, self.capture))
-            finally:
-                self.state.frame_counter -= parity
-            pool = graph.pool()
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
-        self.graphs, self.outputs = graphs, tuple(outputs)
+        self.graphs, self.capture_seconds = _capture_in_turn(
+            self.stream, self.state, 1, self.period, self.period,
+            lambda: self._body(self.state))
 
     def replay(self, capture, render):
         """Copy a frame into the graphs' inputs and replay the graph of the
-        state's parity. Returns its (out, render_out, stats), tensors the
-        graph owns: copy out what you keep before the graph of the same
-        parity replays again."""
+        state's frame in the period. Returns its (out, render_out, stats),
+        tensors the graph owns: copy out what you keep before that graph
+        replays again."""
         if self.graphs is None:
             raise RuntimeError("capture_graphs() before replaying")
         self.capture.copy_(capture, non_blocking=True)
         self.render.copy_(render, non_blocking=True)
-        parity = self.state.frame_counter % 2
-        self.graphs[parity].replay()
+        graph, outputs = self.graphs[self.state.frame_counter % self.period]
+        graph.replay()
         self.state.frame_counter += 1
-        return self.outputs[parity]
+        return outputs
