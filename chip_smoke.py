@@ -22,8 +22,9 @@ exits non-zero without a result line:
    starts that jump to the second chain or clamp at either end of it, the
    twin given the clamped starts) against their plain PyTorch twins on
    the card at the main paths' shapes; K1 also at the analytics VAD's
-   shapes (phase 11's B = 4096) and AGC1's limiter kernel at phase 11's
-   rows. Each row gives the call time (CUDA
+   shapes (phase 11's B = 4096) and at the mobile path's HPF (phase 12's
+   16 kHz table, B = 4096), and AGC1's limiter kernel at phase 11's rows.
+   Each row gives the call time (CUDA
    events around back-to-back calls from Python: what a caller pays, host
    work included), the device time (the calls captured in a CUDA graph and
    replayed: the kernel alone), the device kernels one call runs, the twin's
@@ -49,10 +50,10 @@ exits non-zero without a result line:
    device kernels per frame (the first is the profiler's warm-up).
 5. After each path, its cross-check: two streams rerun on the CPU by the
    same port (plain twins) from the card's state before each checked frame
-   (every third or fourth frame from 76 to 195, the untimed run after the
-   delay has locked): relative RMS <= 1e-3 and the same delay on every
-   checked frame. A free-running rerun over the first 20 of those frames
-   is printed beside it: AEC3 turns float noise into
+   (every eighth or twelfth frame from 76 to 195, the untimed run after
+   the delay has locked): relative RMS <= 1e-3 and the same delay on every
+   checked frame. A free-running rerun over the 10 frames from the first
+   checked one is printed beside it: AEC3 turns float noise into
    decisions (the refined filter's leakage choice when the refined and
    coarse error energies tie to a few ulps), so two devices drift apart
    within tens of frames with the same ERLE (tools/torch_card_vs_cpu.py
@@ -76,7 +77,7 @@ exits non-zero without a result line:
    prints for those batches.
 9. ``api_48k_stereo``: one ``api.AudioProcessing`` on the card with
    ``Config()``'s pipeline (HPF, AEC3, NS, AGC2 with the RNN-VAD) at 48 kHz
-   stereo, fed stream 0 of the main path's scene for 300 frames
+   stereo, fed stream 0 of the main path's scene for 200 frames
    (``process_reverse_stream``, then ``process_stream``). Its outputs must
    be bit-equal on every frame to ``apm.process_stream_pair`` at B = 1 on
    the frames it processed (the same kernels in the same order at the same
@@ -118,11 +119,37 @@ exits non-zero without a result line:
    graphed ms per frame (host clock and CUDA events), real-time streams,
    device kernels per frame, the captures' seconds and the peak device
    memory, beside phase 7's graphed ``default_48k``.
+12. ``aecm_fixed_16k``: the reference's fixed profile
+   (WEBRTC_AUDIOPROC_FIXED_PROFILE, its Android build: AECM in mobile
+   mode, AGC1 adaptive digital, NS, HPF; ``aecm_config``) at 16 kHz mono,
+   B = 4096 for 600 frames (6 s, tests/test_aecm_apm.py's length) of
+   ``aecm_scene``: per stream a speech-like far end, its echo 20, 30 or
+   50 ms late with a smear, a voiced near end on the odd streams, every
+   stream reporting a 20 ms delay. First 60 frames eagerly
+   (``step_graph.step_pair``, the delay an input), counting K1's and the
+   limiter's launches; then the whole run through ``step_graph.PairGraph``
+   (period 2) from init_state, bit-equal to the eager run on every stream
+   over its 60 frames (outputs, AGC1's levels, AECM's and AGC1's integer
+   leaves), with no host sync in a replay; ERLE over the last third above
+   8 dB on the checked echo-only streams and on 99% of all of them
+   (``AECM_ERLE_SHARE``: AECM lets a few streams' echo through for a while,
+   in the JAX package too); AECM alone from the card's state of 8
+   streams at frame 400, buffer_farend and process_frame on the card and
+   on the CPU for 10 frames of the scene's int16 frames, bit for bit; one
+   pair from the card's state before frame 560 rerun on the CPU for the
+   checked streams: relative RMS <= 1e-3 and AGC1's level within +-1. It
+   prints the graphed ms per frame (host clock and CUDA events), real-time
+   streams, device kernels per frame, the capture's seconds and the peak
+   device memory beside phase 7's graphed ``default_48k``; then AGC1's
+   limiter timed on one eager frame's own gains (``kernel_on_path_data``).
+13. ``aecm_fixed_8k``: the fixed profile at 8 kHz mono (processed at
+   16 kHz, AECM with it), B = 64 for 40 frames, eager then graphed from
+   init_state, bit-equal on every frame, every stream past AECM's startup.
 
 Before the last line the kernel table as JSON (each kernel's
 ``launches`` from the main path, K6's from ``pair_kernel_48k``, AGC1's
 limiter's from ``agc1_hybrid_48k``, and ``launches_by_path`` from every
-path, phases 9-11 included), then the result JSON. The script
+path, phases 9-13 included), then the result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -154,7 +181,7 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
 PROFILED_FRAMES = 3  # the first is the profiler's warm-up
-FREE_FRAMES = 20
+FREE_FRAMES = 10
 
 # K6 against its twin: 2e-3 of each float leaf's scale
 # (tests/test_subtractor_pallas.py:119-124), integer leaves exact.
@@ -200,19 +227,20 @@ class Aec3Path:
     cross: range
 
 
-# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 40 and
-# 30 frames keep the script near half its 1200 s limit on a slow host. They
-# are spread over frames 76-195, before the profiled and timed frames.
+# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 15 and
+# 10 frames keep the script near 900 s of its 1200 s limit with the mobile
+# path's phases. They are spread over frames 76-195, before the profiled
+# and timed frames.
 # ``default_48k`` is the main path: the APM's own default pipeline.
 AEC3_PATHS = (
     Aec3Path("default_48k", "default_48k", 4096, False, (0, 4095),
-             range(76, 196, 4)),
+             range(76, 196, 8)),
     Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
-             range(76, 196, 3)),
+             range(76, 196, 12)),
     Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
-             range(76, 196, 4)),
+             range(76, 196, 12)),
     Aec3Path("pair_kernel_16k_mono", "16k_mono", 4096, True, (0, 4095),
-             range(76, 196, 4)),
+             range(76, 196, 8)),
 )
 
 SLICE_WARMUP = 10
@@ -497,6 +525,11 @@ def kernels_phase(dev):
         "default_48k_decimator": _k1_case(
             dev, main_rng, np.concatenate([aa, nr]), 64, 4096),
     })
+    # The mobile path's HPF (phase 12, aecm_fixed_16k): the 16 kHz table
+    # over B = 4096 mono lanes.
+    others["aecm_fixed_16k_hpf"] = _k1_case(
+        dev, np.random.default_rng(SEED + 109),
+        biquad.pack_coeffs(*biquad.HPF_COEFFS[16000]), 160, 4096)
     # The analytics VAD's cascades at phase 11's B = 4096 (one capture
     # channel): its pole-zero HPF every frame; on phase 2 the pre-filter
     # bank's input-HPF poles, composite all-pass (both channels' lanes)
@@ -677,12 +710,8 @@ def limiter_case(dev, rng, N=4096):
     the hybrid's 7 dB table and of the worst case over AGC1's range
     (tools/torch_agc1_limiter_worst.py: the fixed-digital 90 dB table's
     largest gain, 727 passes on an envelope of 2^25) on a quarter of the
-    rows, envelopes up to full scale. Bit-equal to the twin. The bound is
-    latency: the bytes (0.5 MB) take 0.16 us, the longest row's chain of
-    passes (~20 dependent integer ops each) far longer; the passes the
-    data needs are counted for it."""
+    rows, envelopes up to full scale."""
     from webrtc_audio_processing_tpu_torch.models.agc1 import digital
-    from webrtc_audio_processing_tpu_torch.ops import cuda_agc1_limiter
 
     table = digital.calculate_gain_table(7, 2, True, 7)
     worst = int(digital.calculate_gain_table(90, 0, True, 90).max())
@@ -692,6 +721,18 @@ def limiter_case(dev, rng, N=4096):
     env[: N // 4] = 2**25 - 1
     gains = torch.from_numpy(gains.astype(np.int32)).to(dev)
     env = torch.from_numpy(env.astype(np.int32)).to(dev)
+    return limiter_times(dev, gains, env)
+
+
+def limiter_times(dev, gains, env):
+    """The limiter kernel on ``gains`` (N, 11) and ``env`` (N, 10) int32 on
+    the card: bit-equal to the twin, its times and bound. The bound is
+    latency: the bytes (0.5 MB at N = 4096) take 0.16 us, the longest
+    row's chain of passes (~20 dependent integer ops each) far longer; the
+    passes the data needs are counted for it."""
+    from webrtc_audio_processing_tpu_torch.ops import cuda_agc1_limiter
+
+    N = gains.shape[0]
     got = cuda_agc1_limiter.limit_cuda(gains, env)
     want = cuda_agc1_limiter.limit_plain(gains, env)
     torch.cuda.synchronize()
@@ -1440,8 +1481,11 @@ def bench_twin_phase(dev, smi):
 
 # --------------------------------------------- the API and the engine
 
-API_FRAMES = 300
-API_PROFILED = range(195, 198)  # the first is the profiler's warm-up
+# 200 frames (2 s): the API and the direct path run eagerly at B = 1, ~0.5
+# s a frame between them; the delay has locked and the ERLE over the last
+# third is far above the bar by then (25.3 dB on the CPU).
+API_FRAMES = 200
+API_PROFILED = range(145, 148)  # the first is the profiler's warm-up
 ENGINE_BATCH = 4096
 ENGINE_FRAMES = 120
 ENGINE_QUEUE = 16
@@ -1724,6 +1768,443 @@ def engine_phase(dev, smi, eager_out, graphed_streams):
         raise AssertionError(f"missed-frame counts {m_processed}, dropped "
                              f"{m_dropped}")
     return launches
+
+
+# ------------------------------------------------- AECM, the fixed profile
+
+AECM_BATCH = 4096
+# 6 s, tests/test_aecm_apm.py's length: AECM's channel is still in its
+# startup convergence at 3 s (tot_count < 2 CONV_LEN blocks), where this
+# scene's ERLE over the last third is -1.4 to 4.9 dB on the echo-only
+# streams (the port on the CPU, 12 streams: tools/torch_aecm_erle.py);
+# over 4-6 s it is 54-76 dB.
+AECM_FRAMES = 600
+AECM_EAGER = 60  # frames run eagerly, then held to the graph
+# The stream delay every stream reports: the smallest echo delay. AECM
+# fetches the far end that late and searches later lags only, so an echo
+# earlier than the reported delay is acausal to it: at 30 ms reported the
+# 20 ms streams keep 8.2-9.5 dB (the same CPU runs).
+AECM_DELAY_MS = 20
+AECM_ECHO_DELAYS_MS = (20, 30, 50)  # the echo's true delay, by stream % 3
+AECM_CHECK = (0, 1, 4094, 4095)  # even: echo only; odd: echo and speech
+AECM_CPU_PAIR = 280  # the pair from frame 560, rerun on the CPU
+AECM_CORE_FRAME = 400  # AECM alone, card against CPU, from this frame
+AECM_CORE_STREAMS = 8
+AECM_CORE_FRAMES = 10
+AECM_ERLE_BAR_DB = 8.0  # tests/test_aecm_apm.py:44
+# The bar holds on the checked echo-only streams, as phases 7 and 11 hold
+# theirs, and on this share of all the echo-only streams: AECM itself lets
+# a few streams' echo through for a few seconds after its startup phases
+# change (at 512 and 1024 blocks) before it settles again, in the JAX
+# package as in the port (the same ERLE to 0.01 dB on the CPU:
+# tests/torch_aecm_erle_streams.py).
+AECM_ERLE_SHARE = 0.99
+AECM_CPU_RTOL = RTOL_RMS
+AECM_8K_BATCH = 64
+AECM_8K_FRAMES = 40
+
+
+def aecm_config(cfg_mod):
+    """The reference's fixed profile, WEBRTC_AUDIOPROC_FIXED_PROFILE (its
+    Android build; audio_processing_unittest.cc:135-141, as
+    tools/apm_conformance.py:75-88 sets it with mobile=True): AECM in
+    mobile mode, AGC1 adaptive digital without the analog controller, NS
+    and the HPF."""
+    return cfg_mod.Config().replace(
+        pipeline=cfg_mod.Pipeline(maximum_internal_processing_rate=48000),
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True, mobile_mode=True),
+        gain_controller1=cfg_mod.GainController1(
+            enabled=True, mode=cfg_mod.Agc1Mode.ADAPTIVE_DIGITAL,
+            analog_gain_controller=cfg_mod.AnalogGainController(
+                enabled=False)),
+        noise_suppression=cfg_mod.NoiseSuppression(enabled=True),
+        high_pass_filter=cfg_mod.HighPassFilter(enabled=True))
+
+
+def aecm_geometry(rate):
+    """The fixed profile's APM geometry at ``rate``, mono."""
+    from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
+
+    return apm.ApmGeometry.create(aecm_config(cfg_mod), rate, 1,
+                                  render_input_rate=rate,
+                                  num_render_channels=1)
+
+
+def aecm_scene(n_frames, rate, streams):
+    """(len(streams), n, 1) float32 render and capture: per stream s,
+    tests/test_aecm_apm.py:11-15's speech-like far end (noise from the seed
+    (SEED, s) under 2.7 Hz bursts with >10 dB level swings), its echo
+    ``AECM_ECHO_DELAYS_MS[s % 3]`` late with tests/test_aecm.py's smear
+    (0.5, 0.2, 0.1), and on the odd streams a voiced near end at 0.1 of
+    full scale (``voiced_near_end``)."""
+    n = n_frames * rate // 100
+    tt = np.arange(n) / rate
+    env = ((np.sin(2 * np.pi * 2.7 * tt) > -0.3)
+           * (0.08 + 0.92 * np.abs(np.sin(2 * np.pi * 0.31 * tt))))
+    streams = np.asarray(streams)
+    far = np.empty((len(streams), n), np.float32)
+    for i, s in enumerate(streams):
+        far[i] = np.random.default_rng((SEED, int(s))).standard_normal(
+            n, dtype=np.float32)
+    far *= (0.28 * env).astype(np.float32)
+    near = np.empty_like(far)
+    for k, d in enumerate(AECM_ECHO_DELAYS_MS):
+        rows = streams % 3 == k
+        fd = np.roll(far[rows], d * rate // 1000, axis=1)
+        near[rows] = (0.5 * fd + 0.2 * np.roll(fd, 1, axis=1)
+                      + 0.1 * np.roll(fd, 2, axis=1))
+    near[streams % 2 == 1] += voiced_near_end(n, rate, SEED)
+    return far[..., None], near[..., None]
+
+
+def expected_aecm_launches(geo, n_frames):
+    """The launches ``n_frames`` frames of the mobile path imply: K1 for
+    the HPF once a frame, and for each QMF direction twice (at 32 kHz);
+    AGC1's limiter once a frame."""
+    qmf_directions = 2 * ((geo.capture_processing_rate == 32000)
+                          + (geo.render_processing_rate == 32000))
+    want = {k: 0 for k in _kernel_modules()}
+    want.update(biquad_cascade=(geo.hpf_enabled + 2 * qmf_directions)
+                * n_frames, agc1_limiter=n_frames)
+    return want
+
+
+def _int_leaves(state) -> dict:
+    """AECM's and AGC1's integer and bool leaves, on their device."""
+    import webrtc_audio_processing_tpu_torch.step_graph as sg
+
+    out = {}
+    for name in ("aecm", "agc1"):
+        for i, leaf in enumerate(sg._tensor_leaves(getattr(state, name))):
+            if not leaf.dtype.is_floating_point:
+                out[f"{name}.{i}"] = leaf.clone()
+    return out
+
+
+def _erle_active_db(near, far, out):
+    """tests/test_aecm_apm.py:36-41's ERLE per stream over the far end's
+    active samples: near, far, out (S, n) tensors."""
+    active = (far.abs() > 1e-4).double()
+    e_in = (near.double() ** 2 * active).sum(1) / active.sum(1)
+    e_out = (out.double() ** 2 * active).sum(1) / active.sum(1)
+    return 10.0 * torch.log10((e_in + 1e-12) / (e_out + 1e-12))
+
+
+def aecm_core_check(dev, card_state, rows, render, capture, geo):
+    """AECM alone, card against CPU, bit for bit: from the card's AECM
+    state of streams ``rows`` (``card_state``, (S, 1, ...) leaves),
+    buffer_farend and process_frame on the card and on the CPU, fed the
+    same int16 frames (the scene's, from AECM_CORE_FRAME) for
+    AECM_CORE_FRAMES frames. Returns (outputs equal on every frame, the
+    leaves that differ at the end, the streams past startup)."""
+    from webrtc_audio_processing_tpu_torch import apm
+    from webrtc_audio_processing_tpu_torch.models.agc1 import gain_control
+    from webrtc_audio_processing_tpu_torch.ops import audio_util
+
+    S = len(rows)
+    card = gain_control.flatten_channels(card_state)
+    cpu = gain_control.flatten_channels(
+        select_streams(card_state, torch.arange(S, device=dev), "cpu"))
+    F = geo.capture_input_rate // 100
+    delay = torch.full((S,), AECM_DELAY_MS, dtype=torch.int32)
+    outs_equal = []
+    for f in range(AECM_CORE_FRAME, AECM_CORE_FRAME + AECM_CORE_FRAMES):
+        sl = slice(f * F, (f + 1) * F)
+        far, near = (audio_util.float_to_s16(torch.from_numpy(
+            x[rows, sl, 0])).to(torch.int32) for x in (render, capture))
+        card, y_card = ecm_buffer_and_process(
+            geo.aecm, card, far.to(dev), near.to(dev), delay.to(dev))
+        cpu, y_cpu = ecm_buffer_and_process(geo.aecm, cpu, far, near, delay)
+        outs_equal.append(torch.equal(y_card.cpu(), y_cpu))
+    got, want = apm.state_to_numpy(card), apm.state_to_numpy(cpu)
+    leaves = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+    return all(outs_equal), leaves, int((~cpu.ec_startup).sum())
+
+
+def ecm_buffer_and_process(aecm_geo, st, far, near, delay):
+    """One frame of AECM alone: the far end buffered, the near end
+    processed. Returns (state, out)."""
+    from webrtc_audio_processing_tpu_torch.models.aecm import (
+        echo_control_mobile as ecm,
+    )
+
+    st = ecm.buffer_farend(st, far)
+    return ecm.process_frame(aecm_geo, st, near, delay)
+
+
+def aecm_fixed_phase(dev, smi, main_streams):
+    """Phase 12: ``aecm_fixed_16k``, eager then graphed; see the module
+    docstring. ``main_streams``: phase 7's graphed ``default_48k``
+    real-time streams, printed beside. Returns (the eager run's launches,
+    the graphed run's: captured per pair x replays, AGC1's limiter inputs
+    of one eager frame)."""
+    from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
+    from webrtc_audio_processing_tpu_torch.ops import cuda_agc1_limiter
+
+    rate, frame, Bp = 16000, 160, AECM_BATCH
+    geo = aecm_geometry(rate)
+    if geo.aecm is None or geo.aec3 is not None:
+        raise AssertionError("the fixed profile runs AECM, not AEC3")
+    period = apm.parity_period(geo)
+    t0 = time.perf_counter()
+    render, capture = aecm_scene(AECM_FRAMES, rate, range(Bp))
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    setup_s = time.perf_counter() - t0
+    idx = torch.tensor(AECM_CHECK, device=dev)
+    core_rows = np.arange(AECM_CORE_STREAMS) * (Bp // AECM_CORE_STREAMS)
+    core_rows_dev = torch.from_numpy(core_rows).to(dev)
+    rec = "agc1_recommended_level"
+    delay = torch.full((Bp,), AECM_DELAY_MS, dtype=torch.int32, device=dev)
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    # AGC1's limiter inputs on this path's own data: one eager frame's.
+    limiter_inputs = []
+    limit_cuda = cuda_agc1_limiter.limit_cuda
+
+    def keep_inputs(gains, env):
+        if not limiter_inputs:
+            limiter_inputs.append((gains.clone(), env.clone()))
+        return limit_cuda(gains, env)
+
+    # Eager: the pair body itself, every stream's outputs kept.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = apm.init_state(geo, Bp)
+    e_outs = []
+    _reset_counts()
+    t1 = time.perf_counter()
+    for p in range(AECM_EAGER // 2):
+        if p == AECM_EAGER // 2 - 1:
+            cuda_agc1_limiter.limit_cuda = keep_inputs
+        try:
+            pair_outs = step_graph.step_pair(geo, state, *frames(p),
+                                             delay=delay)
+        finally:
+            cuda_agc1_limiter.limit_cuda = limit_cuda
+        e_outs += [(out.clone(), stats[rec].clone())
+                   for out, _, stats in pair_outs]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1000.0 / AECM_EAGER
+    eager_launches = _counts()
+    want = expected_aecm_launches(geo, AECM_EAGER)
+    if eager_launches != want:
+        raise AssertionError(f"aecm_fixed_16k launches {eager_launches}, "
+                             f"expected {want}")
+    eager_ints = _int_leaves(state)
+    del state
+
+    # Graphed from init_state: the pair graphs over one state.
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, Bp))
+    graph.delay.fill_(AECM_DELAY_MS)
+    reserved = torch.cuda.memory_reserved()
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+    pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    want = expected_aecm_launches(geo, period)
+    if captured != want:
+        raise AssertionError(f"aecm_fixed_16k captured {captured} launches "
+                             f"a period, expected {want}")
+    replays = AECM_FRAMES // 2
+    first_timed = replays - AEC3_TIMED // 2
+    timer_start = torch.cuda.Event(enable_timing=True)
+    timer_end = torch.cuda.Event(enable_timing=True)
+    g_outs, tail_outs, finite = [], [], []
+    syncs = graph_ints = core_state = None
+    for p in range(replays):
+        if p == AECM_EAGER // 2:
+            graph_ints = _int_leaves(graph.state)
+        if p == AECM_CORE_FRAME // 2:
+            core_state = select_streams(graph.state.aecm, core_rows_dev, dev)
+        if p == AECM_CPU_PAIR:
+            before = select_streams(graph.state, idx, "cpu")
+        if p == first_timed:
+            torch.cuda.synchronize()
+            host_t0 = time.perf_counter()
+            timer_start.record()
+        if p == first_timed - 1:
+            out_pair = []
+            syncs = _sync_count(lambda: out_pair.append(
+                graph.replay(*frames(p))))
+            pair_outs = out_pair[0]
+        else:
+            pair_outs = graph.replay(*frames(p))
+        if p < AECM_EAGER // 2:
+            g_outs += [(out.clone(), stats[rec].clone())
+                       for out, _, stats in pair_outs]
+        if 2 * p >= AECM_FRAMES - AECM_FRAMES // 3:
+            tail_outs += [out[0::2, :, 0].clone() for out, _, _ in pair_outs]
+        finite.append(torch.stack([torch.isfinite(o).all()
+                                   for o, _, _ in pair_outs]).all())
+        if p == AECM_CPU_PAIR:
+            card_pair = [(o[idx].cpu(), st[rec][idx].cpu())
+                         for o, _, st in pair_outs]
+    timer_end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host_t0) * 1000.0 / AEC3_TIMED
+    dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
+    kernels = bench.device_kernels(
+        [lambda: graph.replay(*frames(replays - 1))],
+        [lambda: graph.replay(*frames(replays - 1))] * 2) / 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite output on aecm_fixed_16k")
+
+    # The graph against the eager run: every stream's outputs and levels
+    # on every frame, AECM's and AGC1's integer leaves after them.
+    differ = [f for f, ((go, gl), (eo, el)) in enumerate(zip(g_outs, e_outs))
+              if not (torch.equal(go, eo) and torch.equal(gl, el))]
+    int_differ = sorted(k for k in eager_ints
+                        if not torch.equal(eager_ints[k], graph_ints[k]))
+    bit_equal = not differ and not int_differ
+
+    # ERLE over the last third on the echo-only streams.
+    n_tail = len(tail_outs) * frame
+    out_tail = torch.cat(tail_outs, dim=1)
+    erle = _erle_active_db(cap_dev[0::2, -n_tail:, 0],
+                           ren_dev[0::2, -n_tail:, 0], out_tail).cpu()
+    erle_checked = {s: float(erle[s // 2]) for s in AECM_CHECK if s % 2 == 0}
+    erle_share = float((erle > AECM_ERLE_BAR_DB).double().mean())
+
+    # AECM alone, card against CPU, from the card's state at frame 200.
+    t2 = time.perf_counter()
+    core_equal, core_leaves, core_enabled = aecm_core_check(
+        dev, core_state, core_rows, render, capture, geo)
+    del core_state
+    # One pair on the CPU from the card's state before frame 280.
+    cpu_outs = step_graph.step_pair(
+        geo, before, *(x[idx].cpu() for x in frames(AECM_CPU_PAIR)),
+        delay=delay[idx].cpu())
+    cpu_rel = [float(np.sqrt(((c[0].numpy() - g.numpy()) ** 2).sum()
+                             / max((g.numpy() ** 2).sum(), 1e-20)))
+               for c, (g, _) in zip(cpu_outs, card_pair)]
+    level_diff = max(int((c[2][rec] - gl).abs().max())
+                     for c, (_, gl) in zip(cpu_outs, card_pair))
+    cpu_s = time.perf_counter() - t2
+
+    launches = {k: v * (replays // (period // 2))
+                for k, v in captured.items()}
+    main_ms = 10.0 * 4096 / main_streams
+    phase("aecm_fixed_16k", streams=Bp, frames=AECM_FRAMES,
+          stream_delay_ms=AECM_DELAY_MS,
+          echo_delays_ms=list(AECM_ECHO_DELAYS_MS), period=period,
+          eager_frames=AECM_EAGER, eager_ms_per_frame=eager_ms,
+          eager_launches=eager_launches,
+          launches_captured_per_period=captured, launches=launches,
+          timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
+          event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          device_kernels_per_frame=kernels,
+          capture_seconds=graph.capture_seconds, peak_mem_gb=peak_gb,
+          graph_pool_gb=pool_gb, host_syncs_per_replay=syncs[0],
+          host_sync_sites=syncs[1], bit_equal_to_eager=bit_equal,
+          frames_differing_from_eager=len(differ),
+          int_leaves_differing=int_differ,
+          erle_db_echo_only=dict(min=float(erle.min()),
+                                 median=float(erle.median()),
+                                 max=float(erle.max()),
+                                 streams=int(erle.numel())),
+          erle_db=dict(zip(map(str, erle_checked), erle_checked.values())),
+          erle_share_above_bar=erle_share,
+          erle_below_bar={str(2 * int(i)): float(erle[i]) for i in
+                          torch.argsort(erle)[:20] if erle[i] <=
+                          AECM_ERLE_BAR_DB},
+          aecm_core_bit_equal=core_equal,
+          aecm_core_leaves_differing=core_leaves,
+          aecm_core_streams_enabled=core_enabled,
+          cpu_pair_rel_rms=cpu_rel, cpu_pair_level_diff=level_diff,
+          cpu_seconds=round(cpu_s, 3), input_seconds=round(setup_s, 3),
+          default_48k_graphed_ms_per_frame=main_ms,
+          default_48k_graphed_realtime_streams=main_streams, card=smi)
+    if not bit_equal:
+        raise AssertionError(
+            f"aecm_fixed_16k graphed differs from eager: {len(differ)} "
+            f"frames, integer leaves {int_differ}")
+    if syncs[0]:
+        raise AssertionError(f"{syncs[0]} host syncs in a replay: "
+                             f"{syncs[1]}")
+    if (min(erle_checked.values()) <= AECM_ERLE_BAR_DB
+            or erle_share < AECM_ERLE_SHARE):
+        raise AssertionError(
+            f"ERLE on the checked echo-only streams {erle_checked} dB, "
+            f"{erle_share:.4f} of the echo-only streams above "
+            f"{AECM_ERLE_BAR_DB} dB (bars: every checked one, "
+            f"{AECM_ERLE_SHARE} of all)")
+    if not core_equal or core_leaves or not core_enabled:
+        raise AssertionError(f"AECM card against CPU: outputs equal "
+                             f"{core_equal}, leaves {core_leaves}, "
+                             f"{core_enabled} streams past startup")
+    if max(cpu_rel) > AECM_CPU_RTOL or level_diff > 1:
+        raise AssertionError(f"the CPU pair differs from the card's: rel RMS "
+                             f"{cpu_rel}, AGC1 level {level_diff}")
+    return eager_launches, launches, limiter_inputs[0]
+
+
+def aecm_8k_phase(dev, smi):
+    """Phase 13: ``aecm_fixed_8k``, the fixed profile at 8 kHz mono (the
+    capture processed at 16 kHz, AECM with it) at B = AECM_8K_BATCH for
+    AECM_8K_FRAMES frames, eager then through the pair graphs from
+    init_state: bit-equal on every frame. Returns (eager launches, graphed
+    launches)."""
+    from webrtc_audio_processing_tpu_torch import apm, step_graph
+
+    rate, frame, Bp = 8000, 80, AECM_8K_BATCH
+    geo = aecm_geometry(rate)
+    period = apm.parity_period(geo)
+    render, capture = aecm_scene(AECM_8K_FRAMES, rate, range(Bp))
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    delay = torch.full((Bp,), AECM_DELAY_MS, dtype=torch.int32, device=dev)
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    state = apm.init_state(geo, Bp)
+    _reset_counts()
+    eager = []
+    for p in range(AECM_8K_FRAMES // 2):
+        eager += [out.clone() for out, _, _ in step_graph.step_pair(
+            geo, state, *frames(p), delay=delay)]
+    eager_launches = _counts()
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, Bp))
+    graph.delay.fill_(AECM_DELAY_MS)
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+    got = []
+    for p in range(AECM_8K_FRAMES // 2):
+        got += [out.clone() for out, _, _ in graph.replay(*frames(p))]
+    torch.cuda.synchronize()
+    differ = [f for f, (g, e) in enumerate(zip(got, eager))
+              if not torch.equal(g, e)]
+    enabled = int((~graph.state.aecm.ec_startup).sum().item())
+    launches = {k: v * (AECM_8K_FRAMES // period)
+                for k, v in captured.items()}
+    want = expected_aecm_launches(geo, AECM_8K_FRAMES)
+    phase("aecm_fixed_8k", streams=Bp, frames=AECM_8K_FRAMES, period=period,
+          aecm_rate_hz=geo.aecm.sample_rate_hz,
+          bit_equal_to_eager=not differ,
+          frames_differing_from_eager=len(differ),
+          streams_past_startup=enabled, eager_launches=eager_launches,
+          launches_captured_per_period=captured, launches=launches,
+          card=smi)
+    if differ:
+        raise AssertionError(f"aecm_fixed_8k graphed differs from eager on "
+                             f"{len(differ)} frames from {differ[0]}")
+    if eager_launches != want or launches != want:
+        raise AssertionError(f"aecm_fixed_8k launches {eager_launches} "
+                             f"eager, {launches} graphed, expected {want}")
+    if enabled != Bp:
+        raise AssertionError(f"{Bp - enabled} streams still in AECM's "
+                             f"startup after {AECM_8K_FRAMES} frames")
+    return eager_launches, launches
 
 
 # ----------------------------------------------------------- slice-1 path
@@ -2151,10 +2632,23 @@ def main(argv=None):
      launches["agc1_hybrid_48k_graphed"]) = agc1_hybrid_phase(
         dev, smi, streams["default_48k_graphed"])
     t7 = time.perf_counter()
+    (launches["aecm_fixed_16k"], launches["aecm_fixed_16k_graphed"],
+     limiter_inputs) = aecm_fixed_phase(dev, smi,
+                                        streams["default_48k_graphed"])
+    limiter = next(r for r in rows if r["name"] == "agc1_limiter")
+    limiter.setdefault("other_shapes", {})["aecm_fixed_16k_path_gains"] = (
+        limiter_times(dev, *limiter_inputs))
+    phase("kernel_on_path_data", name="agc1_limiter", path="aecm_fixed_16k",
+          **limiter["other_shapes"]["aecm_fixed_16k_path_gains"])
+    t8 = time.perf_counter()
+    (launches["aecm_fixed_8k"],
+     launches["aecm_fixed_8k_graphed"]) = aecm_8k_phase(dev, smi)
+    t9 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
           engine_default_48k=round(t6 - t5, 3),
-          agc1_hybrid_48k=round(t7 - t6, 3), total=round(t7 - t_all, 3))
+          agc1_hybrid_48k=round(t7 - t6, 3), aecm_fixed_16k=round(t8 - t7, 3),
+          aecm_fixed_8k=round(t9 - t8, 3), total=round(t9 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
     # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K1-K5 on
     # the main path (the default pipeline); every path beside them, the

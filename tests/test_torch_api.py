@@ -329,31 +329,15 @@ def test_runtime_pre_gain_ramps_within_the_frame():
 # --------------------------------------------------------------- raising
 
 
-@pytest.mark.parametrize("what", ["injections", "aec_dump", "data_dumper",
-                                  "agc1", "aecm", "agc1_apply"])
+@pytest.mark.parametrize("what", ["injections", "aec_dump", "data_dumper"])
 def test_unported_parts_raise_naming_their_roadmap_item(what):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         if what == "injections":
             AudioProcessing(injections=object(), device="cpu")
         elif what == "aec_dump":
             ap_cpu().attach_aec_dump("dump.npz")
-        elif what == "data_dumper":
-            ap_cpu().attach_data_dumper("dumps")
-        elif what == "agc1":
-            # AGC1 runs in the port; beside it AECM still raises (13b).
-            ap_cpu(cfg_mod.Config().replace(
-                gain_controller1=cfg_mod.GainController1(enabled=True),
-                echo_canceller=cfg_mod.EchoCanceller(enabled=True,
-                                                     mobile_mode=True)))
-        elif what == "aecm":
-            ap_cpu(cfg_mod.Config().replace(
-                echo_canceller=cfg_mod.EchoCanceller(enabled=True,
-                                                     mobile_mode=True)))
         else:
-            ap_cpu().apply_config(cfg_mod.Config().replace(
-                gain_controller1=cfg_mod.GainController1(enabled=True),
-                echo_canceller=cfg_mod.EchoCanceller(enabled=True,
-                                                     mobile_mode=True)))
+            ap_cpu().attach_data_dumper("dumps")
 
 
 def test_ring_dtype_other_than_float32_raises(monkeypatch):

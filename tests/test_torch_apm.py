@@ -184,21 +184,45 @@ def test_render_only_and_capture_only_steps():
                           "agc2_speech_level_is_confident", "agc2_headroom_db"}
 
 
-_UNPORTED = {
-    "aecm": dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True,
-                                                      mobile_mode=True)),
-    # AGC1 runs in the port: with it, the mobile AECM still raises.
-    "agc1": dict(gain_controller1=cfg_mod.GainController1(enabled=True),
-                 echo_canceller=cfg_mod.EchoCanceller(enabled=True,
-                                                      mobile_mode=True)),
-}
+_MOBILE = dict(echo_canceller=cfg_mod.EchoCanceller(enabled=True,
+                                                   mobile_mode=True))
+_MOBILE_AGC1 = dict(_MOBILE,
+                    gain_controller1=cfg_mod.GainController1(enabled=True))
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED))
-def test_unported_components_raise(name):
-    config = _slice_config(cfg_mod).replace(**_UNPORTED[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apm.ApmGeometry.create(config, 48000, 2)
+@pytest.mark.parametrize("case", ["api_agc1", "api_aecm", "api_agc1_apply",
+                                  "apm_aecm", "apm_agc1"])
+def test_mobile_configs_build_and_run(case):
+    """The configs that raised until AECM was ported: the API built with
+    (or switched by apply_config to) the mobile echo canceller, alone or
+    beside AGC1, and the APM's geometry with them at 48 kHz stereo; each
+    runs one frame on the CPU with finite output."""
+    from webrtc_audio_processing_tpu_torch import api
+
+    x = np.random.default_rng(1).uniform(-0.3, 0.3, (480, 2)).astype(
+        np.float32)
+    if case.startswith("api"):
+        extra = _MOBILE if case == "api_aecm" else _MOBILE_AGC1
+        config = cfg_mod.Config().replace(**extra)
+        if case == "api_agc1_apply":
+            ap = api.AudioProcessing(device="cpu")
+            ap.apply_config(config)
+        else:
+            ap = api.AudioProcessing(config, device="cpu")
+        assert ap.process_reverse_stream(x, 48000)[0] == api.kNoError
+        err, out = ap.process_stream(x, 48000)
+        assert err == api.kNoError and ap._geo.aecm is not None
+    else:
+        extra = _MOBILE if case == "apm_aecm" else _MOBILE_AGC1
+        geo = apm.ApmGeometry.create(_slice_config(cfg_mod).replace(**extra),
+                                     48000, 2, num_render_channels=2)
+        assert geo.aecm.sample_rate_hz == 16000 and geo.aec3 is None
+        state = apm.init_state(geo, 1, device="cpu")
+        _, out, _, _ = apm.process_stream_pair(
+            geo, state, torch.from_numpy(x[None]), torch.from_numpy(x[None]),
+            stream_delay_ms=20)
+        out = out[0].numpy()
+    assert out.shape == (480, 2) and np.isfinite(out).all()
 
 
 @pytest.mark.parametrize("rates", [(32000, 32000), (48000, 16000)])
@@ -223,7 +247,9 @@ def test_injections_raise():
 
 def test_port_imports_and_runs_without_jax():
     """With jax unimportable, the port imports and runs one frame on the
-    CPU, and never imports the JAX package."""
+    CPU (the desktop pipeline, then the mobile one with AECM), imports the
+    AECM, int FFT and legacy resampler modules, and never imports the JAX
+    package."""
     code = r"""
 import sys
 sys.modules["jax"] = None
@@ -247,6 +273,19 @@ ap = api.AudioProcessing(cfg, device="cpu")
 err, y = ap.process_stream(x[0].numpy(), 48000)
 assert err == 0 and y.shape == (480, 2)
 assert runtime.BatchEngine and runtime.apm_step_fn and run_offline.main
+mobile = cfg.replace(echo_canceller=c.EchoCanceller(enabled=True,
+                                                    mobile_mode=True))
+geo = apm.ApmGeometry.create(mobile, 48000, 2, num_render_channels=2)
+state = apm.init_state(geo, 1, device="cpu")
+state, out, rout, stats = apm.process_stream_pair(geo, state, x, x,
+                                                  stream_delay_ms=30)
+assert geo.aecm is not None and bool(torch.isfinite(out).all())
+from webrtc_audio_processing_tpu_torch.models.aecm import core
+from webrtc_audio_processing_tpu_torch.ops import int_fft, legacy_resampler
+rc, y16 = legacy_resampler.Resampler(48000, 16000, 1).push(
+    np.zeros(480, np.int16))
+assert rc == 0 and y16.shape == (160,)
+assert core.process_block and int_fft.real_forward_fft_i16
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib",
                                       "webrtc_audio_processing_tpu."))

@@ -883,3 +883,145 @@ def test_k1_on_the_analytics_vad_rows_matches_twin(device, table):
     st_k, y_k = cuda_biquad.cascade(coeffs, st, x, allpass=allpass)
     st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x, allpass=allpass)
     assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
+
+
+# ------------------------------------------------------------------ AECM
+
+
+@pytest.mark.parametrize("order", [7, 8])
+def test_int_fft_on_the_card_equals_the_cpu(device, order):
+    """The int16 FFT, forward and inverse, card against CPU bit for bit on
+    a ragged N = 257 rows of full-scale noise with the extremes; the
+    inverse's per-row shift count too."""
+    from webrtc_audio_processing_tpu_torch.ops import int_fft
+
+    n = 1 << order
+    rng = np.random.default_rng(order)
+    x = rng.integers(-32768, 32768, (257, n)).astype(np.int32)
+    x[0], x[1], x[2, ::2] = 32767, -32768, -32768
+    y = rng.integers(-32768, 32768, (257, n)).astype(np.int32)
+    cpu = (torch.from_numpy(x), torch.from_numpy(y))
+    card = tuple(t.to(device) for t in cpu)
+    for fn in (int_fft.complex_fft_i16, int_fft.complex_ifft_i16):
+        got, want = fn(*card, order), fn(*cpu, order)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+    h = n // 2 + 1
+    got = int_fft.real_inverse_fft_i16(card[0][:, :h], card[1][:, :h], order)
+    want = int_fft.real_inverse_fft_i16(cpu[0][:, :h], cpu[1][:, :h], order)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("rate", [8000, 16000])
+def test_aecm_process_frame_on_the_card_equals_the_cpu(device, rate):
+    """AECM alone, N = 257 cancellers with stream delays from 0 to 500 ms,
+    60 frames of an echo scene from startup on, card against CPU: every
+    output and state leaf bit for bit on every frame (integer products
+    wrap alike, shift counts stay in [0, 31], the uint32 values go through
+    int64, the magnitude's float32 square root is corrected to the exact
+    integer one)."""
+    from webrtc_audio_processing_tpu_torch.models.aecm import (
+        echo_control_mobile as ecm,
+    )
+
+    N, F = 257, rate // 100
+    geo = ecm.AecmGeometry(sample_rate_hz=rate)
+    render, capture = chip_smoke.aecm_scene(60, rate, range(N))
+    far = torch.from_numpy(np.round(render[..., 0] * 32767).astype(np.int32))
+    near = torch.from_numpy(np.round(capture[..., 0] * 32767).clip(
+        -32768, 32767).astype(np.int32))
+    delay = torch.from_numpy(np.linspace(0, 500, N).astype(np.int32))
+    cpu = ecm.init_state(geo, N, "cpu")
+    card = ecm.init_state(geo, N, device)
+    for f in range(60):
+        sl = slice(f * F, (f + 1) * F)
+        outs = []
+        for st, d in ((cpu, "cpu"), (card, device)):
+            st = ecm.buffer_farend(st, far[:, sl].to(d))
+            outs.append(ecm.process_frame(geo, st, near[:, sl].to(d),
+                                          delay.to(d)))
+        (cpu, y_cpu), (card, y_card) = outs
+        assert torch.equal(y_card.cpu(), y_cpu), f
+    got, want = apm.state_to_numpy(card), apm.state_to_numpy(cpu)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert not cpu.ec_startup.all()
+
+
+@pytest.mark.parametrize("rate", [16000, 8000])
+def test_aecm_pair_graph_equals_eager(device, rate):
+    """The fixed profile (HPF, NS, AECM, AGC1 adaptive digital) through
+    ``step_graph.PairGraph`` at the period 2, B = 5 for 40 frames from
+    init_state, the stream delay an input: every output, AGC1 level and
+    at the end every state leaf bit for bit with eager pair steps."""
+    geo = chip_smoke.aecm_geometry(rate)
+    assert apm.parity_period(geo) == 2
+    F = rate // 100
+    render, capture = chip_smoke.aecm_scene(40, rate, range(5))
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    delay = torch.tensor([0, 20, 30, 50, 120], dtype=torch.int32,
+                         device=device)
+    eager = apm.init_state(geo, 5, device)
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, 5, device))
+    graph.delay.copy_(delay)
+    graph.capture()
+    assert sorted(graph.graphs) == [0]
+    for p in range(20):
+        args = []
+        for f in (2 * p, 2 * p + 1):
+            sl = slice(f * F, (f + 1) * F)
+            args += [ren[:, sl], cap[:, sl]]
+        got = graph.replay(*args)
+        want = step_graph.step_pair(geo, eager, *args, delay=delay)
+        for (g, _, g_st), (w, _, w_st) in zip(got, want):
+            assert torch.equal(g, w), p
+            assert torch.equal(g_st["agc1_recommended_level"],
+                               w_st["agc1_recommended_level"]), p
+    got, want = apm.state_to_numpy(graph.state), apm.state_to_numpy(eager)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert not graph.state.aecm.ec_startup.any()
+
+
+@pytest.mark.parametrize("rate", [16000, 8000])
+def test_aecm_frame_graphs_equal_eager(device, rate):
+    """The fixed profile through ``step_graph.FrameGraphs`` (two frame
+    graphs), B = 3 for 30 frames with the delay an input, against eager
+    frames: outputs and every state leaf bit for bit."""
+    geo = chip_smoke.aecm_geometry(rate)
+    F = rate // 100
+    render, capture = chip_smoke.aecm_scene(30, rate, range(3))
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    delay = torch.tensor([10, 30, 60], dtype=torch.int32, device=device)
+    eager = apm.init_state(geo, 3, device)
+    graphs = step_graph.FrameGraphs(geo, apm.init_state(geo, 3, device))
+    graphs.delay.copy_(delay)
+    graphs.capture_graphs()
+    assert sorted(graphs.graphs) == [0, 1]
+    for f in range(30):
+        sl = slice(f * F, (f + 1) * F)
+        g, _, _ = graphs.replay(cap[:, sl], ren[:, sl])
+        eager, w, _, _ = apm.process_stream_pair(
+            geo, eager, cap[:, sl], ren[:, sl], stream_delay_ms=delay)
+        assert torch.equal(g, w), f
+    got, want = apm.state_to_numpy(graphs.state), apm.state_to_numpy(eager)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_k1_at_the_mobile_hpf_shape_matches_twin(device):
+    """K1 at the mobile path's HPF: the 16 kHz table, T = 160, 4096
+    lanes, bit-equal to its twin on the card."""
+    rng = np.random.default_rng(16)
+    coeffs = torch.from_numpy(
+        biquad.pack_coeffs(*biquad.HPF_COEFFS[16000])).to(device)
+    x = torch.from_numpy((rng.standard_normal((160, 4096)) * 3000).astype(
+        np.float32)).to(device)
+    st = torch.from_numpy((rng.standard_normal((12, 4096)) * 1000).astype(
+        np.float32)).to(device)
+    st_k, y_k = cuda_biquad.cascade(coeffs, st, x)
+    st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x)
+    assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)

@@ -18,7 +18,9 @@ block ordinal and the frame's phase in the cadence (``apm.parity_period``:
 analog level loop: ``set_stream_analog_level`` writes AGC1's level into
 the state and is the applied volume of the next frames;
 ``recommended_stream_analog_level`` gives AGC2's input volume controller's
-recommendation when it made one, else AGC1's.
+recommendation when it made one, else AGC1's. In mobile mode
+(``EchoCanceller(mobile_mode=True)``) AECM reads the delay of
+``set_stream_delay_ms`` on every capture step.
 ``AEC3_PAIR_KERNEL=1`` puts the subtractor on K6 as the JAX package's
 switch does (``echo_canceller3.pair_kernel_from_env``).
 
@@ -170,7 +172,6 @@ class AudioProcessing:
                 "item 12)")
         self._device = apm._resolve_device(device)
         self._config = config or cfg_mod.Config()
-        apm._check_supported(self._config)
         self._aec3_config = echo_canceller3_config
         self._geo = None
         self._geo_key = None
@@ -234,7 +235,6 @@ class AudioProcessing:
         frame."""
         if config == self._config:
             return
-        apm._check_supported(config)
         self._config = config
         self._geo = None
 
@@ -373,11 +373,14 @@ class AudioProcessing:
         if render_bands is not None:
             self._state, out, _, stats = self._module(
                 self._state, cap, render_bands=render_bands,
+                stream_delay_ms=self._stream_delay_ms,
                 applied_input_volume=volume)
         else:
             self._state, out, _, stats = self._module(
                 self._state, cap, self._tensor(render),
-                render_valid=render_is_real, applied_input_volume=volume)
+                render_valid=render_is_real,
+                stream_delay_ms=self._stream_delay_ms,
+                applied_input_volume=volume)
         self._last_stats = stats
         # Input-volume histograms: the applied volume when one was set for
         # this frame (audio_processing_impl.cc:1313-1316), the recommended

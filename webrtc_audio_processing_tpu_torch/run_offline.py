@@ -5,10 +5,11 @@ The port's twin of ``examples/run_offline.py``: paired 10 ms frames through
 ``--device cpu`` says otherwise, the processed capture written as a WAV.
 
     python -m webrtc_audio_processing_tpu_torch.run_offline near.wav out.wav \\
-        [--far far.wav] [--no-aec] [--no-ns] [--no-agc2] \\
+        [--far far.wav] [--no-aec] [--aecm] [--no-ns] [--no-agc2] \\
         [--stream-delay-ms N] [--device cpu]
 
-``--aecm`` (the mobile echo canceller) raises: it is not ported yet.
+``--aecm`` runs the mobile echo canceller (AECM) in place of AEC3; it
+reads ``--stream-delay-ms``.
 """
 
 from __future__ import annotations
@@ -36,15 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--no-ns", action="store_true")
     ap.add_argument("--no-agc2", action="store_true")
     ap.add_argument("--aecm", action="store_true",
-                    help="the mobile echo controller (not ported yet)")
+                    help="the mobile echo controller (AECM)")
     ap.add_argument("--stream-delay-ms", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; the card when not given")
     args = ap.parse_args(argv)
-    if args.aecm:
-        raise NotImplementedError(
-            "the mobile echo canceller AECM is not ported yet (ROADMAP "
-            "Queue 1 item 13b)")
 
     from webrtc_audio_processing_tpu_torch import config as cfg_mod
     from webrtc_audio_processing_tpu_torch.api import AudioProcessing
@@ -61,7 +58,8 @@ def main(argv=None) -> int:
 
     c = cfg_mod.Config().replace(
         echo_canceller=cfg_mod.EchoCanceller(
-            enabled=not args.no_aec and far is not None),
+            enabled=not args.no_aec and far is not None,
+            mobile_mode=args.aecm),
         noise_suppression=cfg_mod.NoiseSuppression(enabled=not args.no_ns),
         gain_controller2=cfg_mod.GainController2(
             enabled=not args.no_agc2,

@@ -12,7 +12,9 @@ launch in place of the step's ~16,600 kernel launches.
 The hybrid AGC1's applied mic volume is an input tensor of the graphs,
 ``volume``, (B,) int32, read as it stands at each replay: the caller
 closes the analog loop between replays on the device, for example with
-``graph.volume.copy_(stats1["agc1_recommended_level"])``.
+``graph.volume.copy_(stats1["agc1_recommended_level"])``. So is the mobile
+AECM's reported stream delay, ``delay``, (B,) int32 in ms, 0 until the
+caller fills it.
 
 A graph replays the addresses it captured, so the state lives in tensors
 the graph owns: each new leaf the two steps make is copied back into the
@@ -148,25 +150,27 @@ def _warm_up(stream, state: apm.ApmState, body) -> None:
 
 
 def pair_body(module: apm.Apm, state: apm.ApmState, r0, c0, r1, c1,
-              volume=None):
+              volume=None, delay=None):
     """Frames 0 and 1 of a pair from ``state`` (at an even frame), every
     new leaf copied back into ``state``; its frame counter is the caller's
     to advance. ``volume``: the applied mic volume of both frames, (B,)
+    int32, or None; ``delay``: the stream delay of both frames in ms, (B,)
     int32, or None. Returns ((out, render_out, stats) of each frame)."""
-    s, y0, ro0, st0 = module(state, c0, r0, applied_input_volume=volume)
-    s, y1, ro1, st1 = module(s, c1, r1, applied_input_volume=volume)
+    kw = dict(applied_input_volume=volume, stream_delay_ms=delay)
+    s, y0, ro0, st0 = module(state, c0, r0, **kw)
+    s, y1, ro1, st1 = module(s, c1, r1, **kw)
     copy_into(state, s)
     return (y0, ro0, st0), (y1, ro1, st1)
 
 
 def step_pair(geo: apm.ApmGeometry, state: apm.ApmState, r0, c0, r1, c1,
-              volume=None):
+              volume=None, delay=None):
     """One replay's work run eagerly: the pair body on ``state`` (untied
     first) in place, then the frame counter advanced by 2."""
     _check_even(state)
     untie(state)
     outs = pair_body(apm.module_for(geo, c0.device), state, r0, c0, r1, c1,
-                     volume)
+                     volume, delay)
     state.frame_counter += 2
     return outs
 
@@ -175,6 +179,14 @@ def _volume_input(geo: apm.ApmGeometry, B: int, dev):
     """The applied-volume input of a graph: a (B,) int32 tensor where the
     step reads one (the hybrid AGC1), else None."""
     if geo.agc1_hybrid:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    return None
+
+
+def _delay_input(geo: apm.ApmGeometry, B: int, dev):
+    """The stream-delay input of a graph: a (B,) int32 tensor where the
+    step reads one (the mobile AECM), else None."""
+    if geo.aecm is not None:
         return torch.zeros(B, dtype=torch.int32, device=dev)
     return None
 
@@ -211,9 +223,9 @@ class PairGraph:
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
         dev = _card_of(state)
-        if geo.aec3 is None:
-            raise ValueError("the pair step is the AEC3 cadence; this "
-                             "geometry runs no echo canceller")
+        if geo.aec3 is None and geo.aecm is None:
+            raise ValueError("the pair step is the echo canceller's "
+                             "cadence; this geometry runs none")
         _check_even(state)
         untie(state)
         self.state, self.device = state, dev
@@ -227,6 +239,7 @@ class PairGraph:
         self.r0, self.r1 = torch.zeros(ren, **f32), torch.zeros(ren, **f32)
         self.c0, self.c1 = torch.zeros(cap, **f32), torch.zeros(cap, **f32)
         self.volume = _volume_input(geo, B, dev)
+        self.delay = _delay_input(geo, B, dev)
         self.period = apm.parity_period(geo)
         self.stream = torch.cuda.Stream(dev)
         self.graphs = None
@@ -235,7 +248,7 @@ class PairGraph:
 
     def _body(self, state):
         return pair_body(self.module, state, self.r0, self.c0, self.r1,
-                         self.c1, self.volume)
+                         self.c1, self.volume, self.delay)
 
     def _warm_body(self, scratch):
         for _ in range(self.period // 2):
@@ -274,12 +287,13 @@ class PairGraph:
 
 
 def frame_body(module: apm.Apm, state: apm.ApmState, render, capture,
-               volume=None):
+               volume=None, delay=None):
     """One frame from ``state``, every new leaf copied back into it; its
     frame counter is the caller's to advance. Returns (out, render_out,
     stats)."""
     s, out, render_out, stats = module(state, capture, render,
-                                       applied_input_volume=volume)
+                                       applied_input_volume=volume,
+                                       stream_delay_ms=delay)
     copy_into(state, s)
     return out, render_out, stats
 
@@ -294,7 +308,9 @@ class FrameGraphs:
     at the state's frame. AEC3's block ordinal advances by 2 or 3 on the
     device inside each graph. Each graph's outputs are its own tensors,
     overwritten by its next replay. The hybrid AGC1's applied volume is
-    the input ``volume``, (B,) int32, read as it stands at each replay.
+    the input ``volume``, (B,) int32, and the mobile AECM's stream delay
+    the input ``delay``, (B,) int32, each read as it stands at each
+    replay.
     """
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
@@ -311,6 +327,7 @@ class FrameGraphs:
             (B, geo.capture_input_rate // 100, geo.num_capture_channels),
             **f32)
         self.volume = _volume_input(geo, B, dev)
+        self.delay = _delay_input(geo, B, dev)
         self.period = apm.parity_period(geo)
         self.stream = torch.cuda.Stream(dev)
         self.graphs = None
@@ -319,7 +336,7 @@ class FrameGraphs:
 
     def _body(self, state):
         return frame_body(self.module, state, self.render, self.capture,
-                          self.volume)
+                          self.volume, self.delay)
 
     def _warm_body(self, scratch):
         for _ in range(self.period):  # every frame of the period
