@@ -50,9 +50,9 @@ exits non-zero without a result line:
    device kernels per frame (the first is the profiler's warm-up).
 5. After each path, its cross-check: two streams rerun on the CPU by the
    same port (plain twins) from the card's state before each checked frame
-   (every eighth or twelfth frame from 76 to 195, the untimed run after
-   the delay has locked): relative RMS <= 1e-3 and the same delay on every
-   checked frame. A free-running rerun over the 10 frames from the first
+   (every 16th or 24th frame from 76 to 195, the untimed run after the
+   delay has locked): relative RMS <= 1e-3 and the same delay on every
+   checked frame. A free-running rerun over the 6 frames from the first
    checked one is printed beside it: AEC3 turns float noise into
    decisions (the refined filter's leakage choice when the refined and
    coarse error energies tie to a few ulps), so two devices drift apart
@@ -145,11 +145,35 @@ exits non-zero without a result line:
 13. ``aecm_fixed_8k``: the fixed profile at 8 kHz mono (processed at
    16 kHz, AECM with it), B = 64 for 40 frames, eager then graphed from
    init_state, bit-equal on every frame, every stream past AECM's startup.
+14. ``injected_default_48k``: ``default_48k``'s geometry at B = 4096 with
+   ``smoke_injections`` (an echo control that is the port's own AEC3, the
+   built-in echo detector's functions injected, a capture analyzer that
+   counts frames per stream, a capture post-processor that halves the
+   output): 20 eager frames from init_state, then ``step_graph.
+   FrameGraphs`` for 120 more on phase 4's scene. The outputs must be
+   half of phase 4's eager outputs bit for bit on the checked streams,
+   the delays and echo likelihoods equal, every stream's count right and
+   no host sync in a replay. It prints ms and device kernels a frame
+   beside the built-in path's frame graphs over the same frames.
+15. ``aec3_per_block_48k``: ``default_48k`` on AEC3's per-block path
+   (``pair_phase=False``) at B = 4096: 60 eager frames (each kernel's
+   launches a frame beside the pair path's), then the pair graph from
+   init_state over 300 frames, bit-equal to eager over its 60 frames, ERLE
+   above 6 dB, the CPU port one frame from the card's state at frames 40
+   and 50 within phase 5's bar; ms and kernels a frame beside phase 7's
+   ``default_48k``. Then ``aec3_per_block_nree_predelay``: B = 256, 40
+   frames, with an injected NREE and a 64-sample capture pre-delay, eager
+   then graphed: bit-equal, finite, the NREE called on every block. K2's
+   per-block shapes are rows of phase 3.
+16. ``builder_api_48k_stereo``: one stream at 48 kHz stereo through
+   ``AudioProcessingBuilder(...).set_field_trials(...)`` with phase 14's
+   injections, 50 frames, bit-equal to ``apm.process_stream_pair`` at
+   B = 1 on the API's own geometry, as phase 9.
 
 Before the last line the kernel table as JSON (each kernel's
 ``launches`` from the main path, K6's from ``pair_kernel_48k``, AGC1's
 limiter's from ``agc1_hybrid_48k``, and ``launches_by_path`` from every
-path, phases 9-13 included), then the result JSON. The script
+path, phases 9-16 included), then the result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -181,7 +205,7 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
 PROFILED_FRAMES = 3  # the first is the profiler's warm-up
-FREE_FRAMES = 10
+FREE_FRAMES = 6
 
 # K6 against its twin: 2e-3 of each float leaf's scale
 # (tests/test_subtractor_pallas.py:119-124), integer leaves exact.
@@ -227,20 +251,20 @@ class Aec3Path:
     cross: range
 
 
-# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 15 and
-# 10 frames keep the script near 900 s of its 1200 s limit with the mobile
-# path's phases. They are spread over frames 76-195, before the profiled
-# and timed frames.
+# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 8 and 5
+# frames keep the script within its 1200 s limit with the phases of the
+# mobile path, the injections and the per-block path. They are spread over
+# frames 76-195, before the profiled and timed frames.
 # ``default_48k`` is the main path: the APM's own default pipeline.
 AEC3_PATHS = (
     Aec3Path("default_48k", "default_48k", 4096, False, (0, 4095),
-             range(76, 196, 8)),
+             range(76, 196, 16)),
     Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
-             range(76, 196, 12)),
+             range(76, 196, 24)),
     Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
-             range(76, 196, 12)),
+             range(76, 196, 24)),
     Aec3Path("pair_kernel_16k_mono", "16k_mono", 4096, True, (0, 4095),
-             range(76, 196, 8)),
+             range(76, 196, 16)),
 )
 
 SLICE_WARMUP = 10
@@ -256,7 +280,12 @@ FP32_FLOPS = 67e12
 DEP_OP_S = 4 / 1.98e9
 
 
+# Each phase's printed fields, for the phases that print beside another.
+PHASES = {}
+
+
 def phase(kind, **fields):
+    PHASES[kind] = fields
     print(json.dumps({"phase": kind, **fields}), flush=True)
 
 
@@ -567,7 +596,8 @@ def kernels_phase(dev):
 
     # K2 at the echo remover's chain reads: sf rows (W = 19, F = 512) in the
     # row, the blocks rows (W = 15, F = 384) beside it, and default_48k's
-    # (one render channel, two bands, B = 4096: F = 256 and 128).
+    # (one render channel, two bands, B = 4096: F = 256 and 128), on the
+    # pair path and on the per-block one.
     def k2_case(W, F, B=B, rng=rng):
         ring = torch.from_numpy(rng.standard_normal(
             (B, 200, F)).astype(np.float32)).to(dev)
@@ -604,7 +634,13 @@ def kernels_phase(dev):
             "default_48k_sf": k2_case(19, 256, 4096,
                                       np.random.default_rng(SEED + 103)),
             "default_48k_blocks": k2_case(15, 128, 4096,
-                                          np.random.default_rng(SEED + 104))},
+                                          np.random.default_rng(SEED + 104)),
+            # The per-block path's reads (phase 15): one spectra window and
+            # one blocks window per block, no chains.
+            "per_block_48k_sf": k2_case(17, 256, 4096,
+                                        np.random.default_rng(SEED + 105)),
+            "per_block_48k_blocks": k2_case(
+                13, 128, 4096, np.random.default_rng(SEED + 106))},
         **k2))
 
     # K3 at the matched filter's shapes (5 filters of 512 taps, DS = 2448,
@@ -1051,13 +1087,14 @@ def select_streams(state, idx, device):
     ints (the frame counter) carry over and 0-d tensors (AEC3's block
     ordinal, uniform across the batch) are copied. CUDA indexes no uint32
     tensor (the comfort-noise seed), so those go through int64."""
+    from webrtc_audio_processing_tpu_torch.ops import batch as batch_ops
+
     if state is None or isinstance(state, int):
         return state
-    if dataclasses.is_dataclass(state):
-        return type(state)(**{
-            f.name: select_streams(getattr(state, f.name), idx, device)
-            for f in dataclasses.fields(state)
-        })
+    kids = batch_ops.children(state)
+    if kids is not None:  # a dataclass, or an injected state's dict or tuple
+        return batch_ops.rebuild(state, {
+            k: select_streams(v, idx, device) for k, v in kids})
     if state.dim() == 0:
         return state.to(device, copy=True)
     if state.dtype == torch.uint32:
@@ -1143,9 +1180,11 @@ def aec3_config(cfg_mod, mode="48k_stereo"):
     )
 
 
-def aec3_geometry(mode, pair_kernel=None):
+def aec3_geometry(mode, pair_kernel=None, pair_phase=True, **kw):
     """The APM geometry of ``mode``; ``pair_kernel`` None follows the JAX
-    package's ``AEC3_PAIR_KERNEL`` switch."""
+    package's ``AEC3_PAIR_KERNEL`` switch; ``pair_phase=False`` runs AEC3's
+    per-block path; ``kw`` goes to ``ApmGeometry.create`` (injections, an
+    AEC3 config)."""
     from webrtc_audio_processing_tpu_torch import apm, config as cfg_mod
     from webrtc_audio_processing_tpu_torch.models.aec3 import echo_canceller3
 
@@ -1156,7 +1195,7 @@ def aec3_geometry(mode, pair_kernel=None):
         aec3_config(cfg_mod, mode), rate, channels, render_input_rate=rate,
         num_render_channels=channels,
         aec3_stereo_content=mode != "default_48k" and channels > 1,
-        aec3_pair_kernel=pair_kernel)
+        aec3_pair_kernel=pair_kernel, aec3_pair_phase=pair_phase, **kw)
 
 
 def expected_aec3_launches(geo, n_frames):
@@ -1166,8 +1205,9 @@ def expected_aec3_launches(geo, n_frames):
     capture analysis and synthesis at 32 kHz, render analysis and
     synthesis when the render is processed at 32 kHz), and per frame pair 5
     render and 5 capture decimations (one launch for both cascades); K2
-    the echo remover's four chain reads per frame; K3 and K4 one per
-    capture block; K5 one per frame (AGC2's VAD); K6 one per frame on the
+    the echo remover's four chain reads per frame (on the per-block path
+    two reads per block: its spectra and its blocks window); K3 and K4 one
+    per capture block; K5 one per frame (AGC2's VAD); K6 one per frame on the
     pair-kernel path. With AGC1 its limiter once a frame, and with the
     hybrid manager K1 once a frame for the analytics VAD's pole-zero HPF
     and nine more on the frames of its phase 2 (every third, from frame 2:
@@ -1180,7 +1220,8 @@ def expected_aec3_launches(geo, n_frames):
                  + 2 * qmf_directions)
     vad = n_frames + 9 * (n_frames // 3) if geo.agc1_hybrid else 0
     return {"biquad_cascade": per_frame * n_frames + 2 * blocks + vad,
-            "span_gather": 4 * n_frames,
+            "span_gather": (4 * n_frames if geo.aec3.pair_phase
+                            else 2 * blocks),
             "matched_filter_nlms": blocks, "pre_echo_inst": blocks,
             "take_windows": n_frames if geo.config.gain_controller2.enabled
             else 0,
@@ -1205,6 +1246,11 @@ def _scene(mode, batch):
     return render[:batch], capture[:batch]
 
 
+# Phase 4's echo detector likelihood on each path's checked streams, (S,
+# frames): phase 14 holds its injected detector to it.
+ECHO_LIKELIHOOD = {}
+
+
 def aec3_path_phase(dev, smi, path):
     from webrtc_audio_processing_tpu_torch import apm, bench
 
@@ -1220,7 +1266,7 @@ def aec3_path_phase(dev, smi, path):
     state = apm.init_state(geo, Bp)
     idx = torch.tensor(path.check, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    outs, delays, finite, snapshots = [], [], [], []
+    outs, delays, likes, finite, snapshots = [], [], [], [], []
     cross = path.cross
     timer_start = torch.cuda.Event(enable_timing=True)
     timer_end = torch.cuda.Event(enable_timing=True)
@@ -1235,6 +1281,7 @@ def aec3_path_phase(dev, smi, path):
             geo, state, cap_dev[:, sl], ren_dev[:, sl])
         outs.append(out[idx])
         delays.append(stats["delay_ms"][idx])
+        likes.append(stats["echo_likelihood"][idx])
         finite.append(torch.isfinite(out).all() & torch.isfinite(rout).all())
         return out
 
@@ -1296,6 +1343,7 @@ def aec3_path_phase(dev, smi, path):
     if not (erle > ERLE_BAR_DB).all():
         raise AssertionError(f"ERLE {erle} dB not above {ERLE_BAR_DB} dB")
     gpu_delay = torch.stack(delays, dim=1).cpu().numpy()
+    ECHO_LIKELIHOOD[path.name] = torch.stack(likes, dim=1).cpu().numpy()
     return (geo, snapshots, render[check], capture[check], gpu_out,
             gpu_delay), launches
 
@@ -2466,6 +2514,518 @@ def agc1_hybrid_phase(dev, smi, main_streams):
     return eager_launches, launches
 
 
+# ------------------------------------------- injections, per-block AEC3
+
+INJECTED_BATCH = 4096
+INJECTED_EAGER = 20
+INJECTED_GRAPHED = 120
+PER_BLOCK_BATCH = 4096
+PER_BLOCK_EAGER = 60
+PER_BLOCK_CPU_FRAMES = (40, 50)  # each rerun on the CPU from the card's
+STRETCH_BATCH = 256
+STRETCH_FRAMES = 40
+STRETCH_PREDELAY = 64  # samples at each split band's 16 kHz
+BUILDER_FRAMES = 50
+BUILDER_TRIALS = "WebRTC-Aec3UseShortConfigChangeDuration/Enabled/"
+
+
+def smoke_injections():
+    """The injections of phases 14 and 16, each of which should change
+    nothing or change things exactly: an echo control that is the port's
+    own AEC3, an echo detector made of the built-in one's functions, a
+    capture analyzer that counts frames per stream and a capture
+    post-processor that halves the output (a power of two: exact)."""
+    from webrtc_audio_processing_tpu_torch import builder
+    from webrtc_audio_processing_tpu_torch.models import echo_detector
+
+    def zeros(b, dev):
+        return torch.zeros(b, dtype=torch.int32, device=dev)
+
+    return builder.Injections(
+        echo_control_factory=builder.aec3_echo_control_factory(),
+        echo_detector=builder.EchoDetectorInjection(
+            init=echo_detector.init_state,
+            analyze_render_audio=echo_detector.analyze_render_audio,
+            analyze_capture_audio=echo_detector.analyze_capture_audio,
+            get_metrics=echo_detector.get_metrics),
+        capture_analyzer=builder.CustomAudioAnalyzer(
+            init=lambda rate, ch, b, dev: {"frames": zeros(b, dev)},
+            analyze=lambda st, frame: {"frames": st["frames"] + 1}),
+        capture_post_processing=builder.CustomProcessing(
+            init=lambda rate, ch, b, dev: {"applied": zeros(b, dev)},
+            process=lambda st, frame: ({"applied": st["applied"] + 1},
+                                       frame * 0.5)))
+
+
+def _device_scene(mode, batch, n_frames, dev):
+    rate = MODES[mode][0]
+    render, capture = _scene(mode, batch)
+    n = n_frames * (rate // 100)
+    return (render[:, :n], capture[:, :n],
+            torch.from_numpy(render[:, :n]).to(dev),
+            torch.from_numpy(capture[:, :n]).to(dev))
+
+
+def injected_phase(dev, smi, eager_out, eager_delay):
+    """Phase 14: ``default_48k``'s geometry at B = 4096 with
+    ``smoke_injections``: 20 eager frames from init_state, then the frame
+    graphs (``step_graph.FrameGraphs``) for 120 more on phase 4's scene.
+    Outputs 0.5 x phase 4's eager outputs bit for bit on the checked
+    streams, the same delays and echo likelihoods, every stream's frame
+    count right, no host sync in a replay. Returns the launches (eager,
+    graphed)."""
+    from webrtc_audio_processing_tpu_torch import apm, bench, step_graph
+
+    rate, channels, _ = MODES["default_48k"]
+    frame, Bp = rate // 100, INJECTED_BATCH
+    n = INJECTED_EAGER + INJECTED_GRAPHED
+    _, _, ren_dev, cap_dev = _device_scene("default_48k", Bp, n, dev)
+    geo = aec3_geometry("default_48k", False, injections=smoke_injections())
+    base = aec3_geometry("default_48k", False)
+    if geo.aec3 is not None or geo.echo_control is None:
+        raise AssertionError("the injected echo control is not in use")
+    check = [p for p in AEC3_PATHS if p.name == "default_48k"][0].check
+    idx = torch.tensor(check, device=dev)
+    outs, delays, likes = [], [], []
+
+    def keep(out, stats):
+        outs.append(out[idx])
+        delays.append(stats["delay_ms"][idx])
+        likes.append(stats["echo_likelihood"][idx])
+
+    def frames(f):
+        sl = slice(f * frame, (f + 1) * frame)
+        return cap_dev[:, sl], ren_dev[:, sl]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = apm.init_state(geo, Bp)
+    _reset_counts()
+    t0 = time.perf_counter()
+    for f in range(INJECTED_EAGER):
+        state, out, _, stats = apm.process_stream_pair(geo, state,
+                                                       *frames(f))
+        keep(out, stats)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1000.0 / INJECTED_EAGER
+    eager_launches = _counts()
+    want = expected_aec3_launches(base, INJECTED_EAGER)
+    timed = min(AEC3_TIMED, INJECTED_GRAPHED)
+
+    def graphed(graphs, first, keep):
+        """Replays from frame ``first`` to the scene's end, the last
+        ``timed`` timed, the one before them sync-counted; then the
+        device kernels a frame over two more replays (the state runs on
+        past the scene). Returns (host ms, event ms, syncs, kernels)."""
+        for f in range(first, n):
+            if f == n - timed:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                host_t0 = time.perf_counter()
+                start.record()
+            if f == n - timed - 1:
+                got = []
+                syncs = _sync_count(lambda f=f: got.append(
+                    graphs.replay(*frames(f))))
+                out, _, stats = got[0]
+            else:
+                out, _, stats = graphs.replay(*frames(f))
+            keep(out, stats)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - host_t0) * 1000.0 / timed
+        # One frame a replay: the profiler's count is a frame's.
+        kernels = bench.device_kernels(
+            [lambda: graphs.replay(*frames(n - 2))],
+            [lambda: graphs.replay(*frames(n - 1)),
+             lambda: graphs.replay(*frames(n - 2))])
+        return host_ms, start.elapsed_time(end) / timed, syncs, kernels
+
+    # The built-in path's frame graphs from init_state over the same
+    # frames, for the time and kernels beside the injected ones.
+    base_graphs = step_graph.FrameGraphs(base, apm.init_state(base, Bp))
+    base_graphs.capture_graphs()
+    base_ms, base_dev_ms, _, base_kernels = graphed(
+        base_graphs, 0, lambda out, stats: None)
+    del base_graphs
+    graphs = step_graph.FrameGraphs(geo, state)
+    _reset_counts()
+    graphs.capture_graphs()
+    captured = _counts()
+    want_captured = expected_aec3_launches(base, graphs.period)
+    host_ms, dev_ms, syncs, kernels = graphed(graphs, INJECTED_EAGER, keep)
+    # Three replays past the scene for the kernel count.
+    counts = {k: (int(v.min()), int(v.max())) for k, v in (
+        ("frames", graphs.state.custom_analyzer["frames"]),
+        ("applied", graphs.state.custom_capture_post["applied"]))}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got_out = torch.cat(outs, dim=1).cpu().numpy()
+    got_delay = torch.stack(delays, dim=1).cpu().numpy()
+    got_like = torch.stack(likes, dim=1).cpu().numpy()
+    want_out = 0.5 * eager_out[:, :n * frame]
+    differ = [f for f in range(n) if not np.array_equal(
+        got_out[:, f * frame:(f + 1) * frame],
+        want_out[:, f * frame:(f + 1) * frame])]
+    same_delay = bool(np.array_equal(got_delay, eager_delay[:, :n]))
+    same_like = bool(np.array_equal(got_like,
+                                    ECHO_LIKELIHOOD["default_48k"][:, :n]))
+    graphed_launches = {k: v * (INJECTED_GRAPHED // graphs.period)
+                        for k, v in captured.items()}
+    ref = PHASES.get("default_48k_graphed", {})
+    phase("injected_default_48k", streams=Bp, eager_frames=INJECTED_EAGER,
+          graphed_frames=INJECTED_GRAPHED, timed_frames=timed,
+          eager_ms_per_frame=eager_ms,
+          default_48k_eager_ms_per_frame=PHASES.get(
+              "default_48k", {}).get("ms_per_frame"),
+          ms_per_frame=host_ms, event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          device_kernels_per_frame=kernels,
+          builtin_frame_graphs_ms_per_frame=base_ms,
+          builtin_frame_graphs_event_ms_per_frame=base_dev_ms,
+          builtin_frame_graphs_kernels_per_frame=base_kernels,
+          default_48k_graphed_ms_per_frame=ref.get("ms_per_frame"),
+          default_48k_graphed_kernels_per_frame=ref.get(
+              "device_kernels_per_frame"),
+          capture_seconds=graphs.capture_seconds,
+          launches=eager_launches, expected_launches=want,
+          launches_captured_per_period=captured,
+          host_syncs_per_replay=syncs[0], host_sync_sites=syncs[1],
+          outputs_half_of_builtin=not differ,
+          frames_differing=len(differ),
+          first_frame_differing=differ[0] if differ else None,
+          delay_ms_equal=same_delay, echo_likelihood_equal=same_like,
+          analyzer_frames_min_max=counts["frames"],
+          post_processor_calls_min_max=counts["applied"],
+          peak_mem_gb=peak_gb, card=smi)
+    if eager_launches != want or captured != want_captured:
+        raise AssertionError(f"injected launches {eager_launches} / "
+                             f"{captured}, expected {want} / "
+                             f"{want_captured}")
+    if differ or not same_delay or not same_like:
+        raise AssertionError(
+            f"the injected run is not the built-in one halved: {len(differ)} "
+            f"frames differ, delays equal {same_delay}, likelihoods equal "
+            f"{same_like}")
+    if set(counts.values()) != {(n + 3, n + 3)}:
+        raise AssertionError(f"per-stream counts {counts}, expected {n + 3}"
+                             f" (the scene and three more replays)")
+    if syncs[0]:
+        raise AssertionError(f"a replay synchronized: {syncs[1]}")
+    return eager_launches, graphed_launches
+
+
+def _nree_estimate(calls):
+    """An injected residual echo estimate that reads its inputs: half the
+    linear echo, a little of E2 and Y2 and the render block's power,
+    doubled where the dominant near end is detected."""
+    def estimate(render, y, e, S2, Y2, E2, dominant_nearend):
+        calls.append(1)
+        power = torch.mean(render * render, -1)[..., None]
+        R2 = (0.5 * S2 + 1e-3 * E2 + 1e-4 * Y2 + 1e-6 * power) * torch.where(
+            dominant_nearend[:, None, None], 2.0, 1.0)
+        return R2, 1.5 * R2
+
+    return estimate
+
+
+def _graph_run(geo, state, ren_dev, cap_dev, n_frames, idx, frame):
+    """``n_frames`` frames through ``step_graph.PairGraph`` from ``state``:
+    (outputs and delays of streams ``idx``, the graph, launches captured
+    per pair, host and event ms per frame over the last pairs (up to 50),
+    the host syncs of one replay)."""
+    from webrtc_audio_processing_tpu_torch import step_graph
+
+    graph = step_graph.PairGraph(geo, state)
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    replays = n_frames // 2
+    timed = min(AEC3_TIMED // 2, replays - 1)
+    outs, delays, finite = [], [], []
+    syncs = None
+    for p in range(replays):
+        if p == replays - timed:
+            torch.cuda.synchronize()
+            timer_start = torch.cuda.Event(enable_timing=True)
+            timer_end = torch.cuda.Event(enable_timing=True)
+            host_t0 = time.perf_counter()
+            timer_start.record()
+        if p == replays - timed - 1:
+            got = []
+            syncs = _sync_count(lambda p=p: got.append(
+                graph.replay(*frames(p))))
+            pair = got[0]
+        else:
+            pair = graph.replay(*frames(p))
+        for out, rout, stats in pair:
+            outs.append(out[idx])
+            delays.append(stats["delay_ms"][idx])
+            finite.append(torch.isfinite(out).all()
+                          & torch.isfinite(rout).all())
+    timer_end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host_t0) * 1000.0 / (2 * timed)
+    dev_ms = timer_start.elapsed_time(timer_end) / (2 * timed)
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite output, graphed")
+    return (torch.cat(outs, dim=1).cpu().numpy(),
+            torch.stack(delays, dim=1).cpu().numpy(), graph, captured,
+            host_ms, dev_ms, syncs, frames)
+
+
+def per_block_phase(dev, smi, pair_out):
+    """Phase 15: ``default_48k`` on AEC3's per-block path
+    (``pair_phase=False``) at B = 4096 on phase 4's scene: 60 eager frames
+    from init_state (the launches a frame of each kernel), then
+    ``step_graph.PairGraph`` from init_state over all 300, bit-equal to
+    the eager run over its 60 frames on the checked streams, ERLE over the
+    last third above 6 dB; the CPU port stepped one frame from the card's
+    state at frames 40 and 50 (phase 5's bar); printed beside them, the
+    frames whose outputs equal phase 4's pair-path ``pair_out`` bit for bit
+    (the two paths differ only where the pair path's staleness rules act).
+    Then the short stretch:
+    B = 256, 40 frames, with an injected NREE and the fixed capture
+    pre-delay (64 samples), eager then graphed: bit-equal, finite, the
+    NREE called on every block. Returns the launches (eager, graphed,
+    stretch eager, stretch graphed)."""
+    from webrtc_audio_processing_tpu_torch import apm, bench, builder
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as a3cfg,
+    )
+
+    rate, channels, _ = MODES["default_48k"]
+    frame, Bp = rate // 100, PER_BLOCK_BATCH
+    render, capture, ren_dev, cap_dev = _device_scene(
+        "default_48k", Bp, AEC3_FRAMES, dev)
+    geo = aec3_geometry("default_48k", False, pair_phase=False)
+    check = list([p for p in AEC3_PATHS if p.name == "default_48k"][0].check)
+    idx = torch.tensor(check, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = apm.init_state(geo, Bp)
+    outs, delays, snapshots = [], [], {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    for f in range(PER_BLOCK_EAGER):
+        if f in PER_BLOCK_CPU_FRAMES:
+            snapshots[f] = select_streams(state, idx, "cpu")
+        sl = slice(f * frame, (f + 1) * frame)
+        state, out, _, stats = apm.process_stream_pair(
+            geo, state, cap_dev[:, sl], ren_dev[:, sl])
+        outs.append(out[idx])
+        delays.append(stats["delay_ms"][idx])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1000.0 / PER_BLOCK_EAGER
+    launches = _counts()
+    want = expected_aec3_launches(geo, PER_BLOCK_EAGER)
+    eager_out = torch.cat(outs, dim=1).cpu().numpy()
+    eager_delay = torch.stack(delays, dim=1).cpu().numpy()
+    del state
+
+    (got_out, got_delay, graph, captured, host_ms, dev_ms, syncs,
+     frames) = _graph_run(geo, apm.init_state(geo, Bp), ren_dev, cap_dev,
+                          AEC3_FRAMES, idx, frame)
+    kernels = bench.device_kernels(
+        [lambda: graph.replay(*frames(AEC3_FRAMES // 2 - 1))],
+        [lambda: graph.replay(*frames(AEC3_FRAMES // 2 - 1))] * 2) / 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    capture_s = graph.capture_seconds
+    del graph
+    n_eager = PER_BLOCK_EAGER * frame
+    differ = [f for f in range(PER_BLOCK_EAGER) if not np.array_equal(
+        got_out[:, f * frame:(f + 1) * frame],
+        eager_out[:, f * frame:(f + 1) * frame])]
+    same_delay = bool(np.array_equal(got_delay[:, :PER_BLOCK_EAGER],
+                                     eager_delay))
+    erle = erle_db(capture[check], render[check], got_out, frame)
+    as_pair = sum(np.array_equal(got_out[:, f * frame:(f + 1) * frame],
+                                 pair_out[:, f * frame:(f + 1) * frame])
+                  for f in range(AEC3_FRAMES))
+
+    # The CPU port, one frame from the card's state.
+    cpu = {}
+    for f, snap in snapshots.items():
+        sl = slice(f * frame, (f + 1) * frame)
+        _, out, _, stats = apm.process_stream_pair(
+            geo, snap, torch.from_numpy(capture[check][:, sl].copy()),
+            torch.from_numpy(render[check][:, sl].copy()))
+        cpu[f] = (_rel_rms(eager_out[:, sl], out.numpy()),
+                  bool(np.array_equal(stats["delay_ms"].numpy(),
+                                      eager_delay[:, f])))
+    graphed_launches = {k: v * (AEC3_FRAMES // 2)
+                        for k, v in captured.items()}
+    ref = PHASES.get("default_48k_graphed", {})
+    ref_eager = PHASES.get("default_48k", {})
+    phase("aec3_per_block_48k", streams=Bp, eager_frames=PER_BLOCK_EAGER,
+          frames=AEC3_FRAMES, eager_ms_per_frame=eager_ms,
+          default_48k_eager_ms_per_frame=ref_eager.get("ms_per_frame"),
+          ms_per_frame=host_ms, event_ms_per_frame=dev_ms,
+          realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+          device_kernels_per_frame=kernels,
+          default_48k_graphed_ms_per_frame=ref.get("ms_per_frame"),
+          default_48k_graphed_kernels_per_frame=ref.get(
+              "device_kernels_per_frame"),
+          launches_per_frame={k: v / PER_BLOCK_EAGER
+                              for k, v in launches.items()},
+          default_48k_launches_per_frame={
+              k: v / AEC3_FRAMES for k, v in expected_aec3_launches(
+                  aec3_geometry("default_48k", False), AEC3_FRAMES).items()},
+          launches=launches, expected_launches=want,
+          launches_captured_per_pair=captured,
+          capture_seconds=capture_s,
+          bit_equal_to_eager=not differ and same_delay,
+          frames_differing=len(differ),
+          frames_equal_to_the_pair_path=as_pair,
+          host_syncs_per_replay=syncs[0],
+          cpu_rel_rms={str(f): v[0].tolist() for f, v in cpu.items()},
+          cpu_delay_ms_equal={str(f): v[1] for f, v in cpu.items()},
+          erle_db=dict(zip(map(str, check), erle.tolist())),
+          peak_mem_gb=peak_gb, card=smi)
+    if launches != want or captured != expected_aec3_launches(geo, 2):
+        raise AssertionError(f"per-block launches {launches} / {captured}, "
+                             f"expected {want}")
+    if differ or not same_delay:
+        raise AssertionError(f"per-block graphed differs from eager: "
+                             f"{len(differ)} frames, delays {same_delay}")
+    if syncs[0]:
+        raise AssertionError(f"a replay synchronized: {syncs[1]}")
+    if not (erle > ERLE_BAR_DB).all():
+        raise AssertionError(f"per-block ERLE {erle} dB not above "
+                             f"{ERLE_BAR_DB} dB")
+    for f, (rel, same) in cpu.items():
+        if not (rel <= RTOL_RMS).all() or not same:
+            raise AssertionError(f"per-block card against CPU at frame {f}:"
+                                 f" relative RMS {rel}, delays {same}")
+    del ren_dev, cap_dev
+
+    # The short stretch with an NREE and the fixed pre-delay.
+    calls = []
+    cfg, _ = a3cfg.validate(a3cfg.EchoCanceller3Config())
+    cfg = cfg.replace(delay=dataclasses.replace(
+        cfg.delay, fixed_capture_delay_samples=STRETCH_PREDELAY))
+    sgeo = aec3_geometry(
+        "default_48k", False, pair_phase=False, aec3_cfg=cfg,
+        injections=builder.Injections(
+            neural_residual_echo_estimator=builder.NeuralResidualEchoEstimator(
+                _nree_estimate(calls))))
+    Bs = STRETCH_BATCH
+    _, _, sren, scap = _device_scene("default_48k", Bs, STRETCH_FRAMES, dev)
+    sidx = torch.arange(Bs, device=dev)
+    state = apm.init_state(sgeo, Bs)
+    outs = []
+    _reset_counts()
+    for f in range(STRETCH_FRAMES):
+        sl = slice(f * frame, (f + 1) * frame)
+        state, out, _, _ = apm.process_stream_pair(sgeo, state, scap[:, sl],
+                                                   sren[:, sl])
+        outs.append(out)
+    stretch_launches = _counts()
+    eager_calls = len(calls)
+    s_eager = torch.cat(outs, dim=1).cpu().numpy()
+    (s_graph, _, sgraph, s_captured, s_ms, _, s_syncs,
+     _) = _graph_run(sgeo, apm.init_state(sgeo, Bs), sren, scap,
+                     STRETCH_FRAMES, sidx, frame)
+    del sgraph
+    s_differ = [f for f in range(STRETCH_FRAMES) if not np.array_equal(
+        s_graph[:, f * frame:(f + 1) * frame],
+        s_eager[:, f * frame:(f + 1) * frame])]
+    blocks = apm.block_ordinal(STRETCH_FRAMES)
+    phase("aec3_per_block_nree_predelay", streams=Bs, frames=STRETCH_FRAMES,
+          predelay_samples=STRETCH_PREDELAY, nree_calls_eager=eager_calls,
+          blocks=blocks, nree_calls_captured=len(calls) - eager_calls,
+          launches=stretch_launches,
+          expected_launches=expected_aec3_launches(sgeo, STRETCH_FRAMES),
+          launches_captured_per_pair=s_captured, ms_per_frame=s_ms,
+          bit_equal_to_eager=not s_differ, frames_differing=len(s_differ),
+          finite=bool(np.isfinite(s_graph).all()),
+          host_syncs_per_replay=s_syncs[0], card=smi)
+    if s_differ or not np.isfinite(s_graph).all():
+        raise AssertionError(f"the NREE stretch: graphed differs on "
+                             f"{len(s_differ)} frames or is not finite")
+    # The graph's warm-up and its capture each run the pair's 5 blocks.
+    if eager_calls != blocks or len(calls) - eager_calls != 2 * 5:
+        raise AssertionError(f"NREE calls {eager_calls} for {blocks} blocks, "
+                             f"{len(calls) - eager_calls} in the graph's")
+    if stretch_launches != expected_aec3_launches(sgeo, STRETCH_FRAMES):
+        raise AssertionError(f"stretch launches {stretch_launches}")
+    return (launches, graphed_launches, stretch_launches,
+            {k: v * (STRETCH_FRAMES // 2) for k, v in s_captured.items()})
+
+
+def builder_api_phase(dev, smi):
+    """Phase 16: one stream at 48 kHz stereo through
+    ``AudioProcessingBuilder(Config()'s pipeline).set_field_trials(...)``
+    with ``smoke_injections``, 50 frames (reverse, then capture), held bit
+    for bit to ``apm.process_stream_pair`` at B = 1 on the API's own
+    geometry, as phase 9. Returns the launches of its run."""
+    from webrtc_audio_processing_tpu_torch import builder, config as cfg_mod
+
+    rate, channels, _ = MODES["default_48k"]
+    frame = rate // 100
+    render, capture = (x[0, :BUILDER_FRAMES * frame]
+                       for x in _scene("default_48k", 1))
+    inj = smoke_injections()
+    ap = (builder.AudioProcessingBuilder(aec3_config(cfg_mod, "default_48k"))
+          .set_field_trials(BUILDER_TRIALS)
+          .set_echo_control_factory(inj.echo_control_factory)
+          .set_echo_detector(inj.echo_detector)
+          .set_capture_analyzer(inj.capture_analyzer)
+          .set_capture_post_processing(inj.capture_post_processing)
+          .build(device=dev))
+    outs, delays, likes = [], [], []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(BUILDER_FRAMES):
+        sl = slice(f * frame, (f + 1) * frame)
+        err_r, _ = ap.process_reverse_stream(render[sl], rate)
+        err, out = ap.process_stream(capture[sl], rate)
+        if err_r or err:
+            raise AssertionError(f"API error {err_r}, {err} at frame {f}")
+        st = ap.get_statistics()
+        outs.append(out)
+        delays.append(st.delay_ms)
+        likes.append(st.residual_echo_likelihood)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1000.0 / BUILDER_FRAMES
+    launches = _counts()
+    geo = ap._geo
+    want = expected_aec3_launches(aec3_geometry("default_48k", False),
+                                  BUILDER_FRAMES)
+    direct, direct_delay = api_direct_outputs(geo, dev, render, capture,
+                                              BUILDER_FRAMES)
+    got = np.stack(outs)
+    differ = [f for f in range(BUILDER_FRAMES)
+              if not np.array_equal(got[f], direct[f])]
+    counted = int(ap._state.custom_analyzer["frames"][0])
+    trial = ap._aec3_config.filter.config_change_duration_blocks
+    phase("builder_api_48k_stereo", frames=BUILDER_FRAMES, streams=1,
+          field_trials=BUILDER_TRIALS,
+          config_change_duration_blocks=trial,
+          injections=sorted(k for k, v in vars(inj).items()
+                            if v is not None),
+          host_ms_per_frame=host_ms, launches=launches,
+          expected_launches=want, bit_equal_to_direct=not differ,
+          frames_differing=len(differ),
+          delay_ms_equal=delays == direct_delay,
+          analyzer_frames=counted, last_delay_ms=delays[-1],
+          last_echo_likelihood=likes[-1], card=smi)
+    if differ or delays != direct_delay:
+        raise AssertionError(f"the builder's API differs from the direct "
+                             f"step on {len(differ)} frames or its delays")
+    if launches != want or counted != BUILDER_FRAMES or trial != 10:
+        raise AssertionError(f"builder API: launches {launches} (expected "
+                             f"{want}), analyzer {counted}, trial {trial}")
+    return launches
+
+
 def slice_config(cfg_mod):
     return cfg_mod.Config().replace(
         pipeline=cfg_mod.Pipeline(multi_channel_capture=True,
@@ -2609,6 +3169,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         run, launches[path.name] = aec3_path_phase(dev, smi, path)
         eager_out[path.name] = run[4]
+        if path.name == "default_48k":
+            eager_delay_default = run[5]
         t1 = time.perf_counter()
         aec3_cross_check_phase(path, *run)
         t2 = time.perf_counter()
@@ -2644,11 +3206,26 @@ def main(argv=None):
     (launches["aecm_fixed_8k"],
      launches["aecm_fixed_8k_graphed"]) = aecm_8k_phase(dev, smi)
     t9 = time.perf_counter()
+    (launches["injected_default_48k"],
+     launches["injected_default_48k_graphed"]) = injected_phase(
+        dev, smi, eager_out["default_48k"], eager_delay_default)
+    t10 = time.perf_counter()
+    (launches["aec3_per_block_48k"], launches["aec3_per_block_48k_graphed"],
+     launches["aec3_per_block_nree_predelay"],
+     launches["aec3_per_block_nree_predelay_graphed"]) = per_block_phase(
+        dev, smi, eager_out["default_48k"])
+    t11 = time.perf_counter()
+    launches["builder_api_48k_stereo"] = builder_api_phase(dev, smi)
+    t12 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
           engine_default_48k=round(t6 - t5, 3),
           agc1_hybrid_48k=round(t7 - t6, 3), aecm_fixed_16k=round(t8 - t7, 3),
-          aecm_fixed_8k=round(t9 - t8, 3), total=round(t9 - t_all, 3))
+          aecm_fixed_8k=round(t9 - t8, 3),
+          injected_default_48k=round(t10 - t9, 3),
+          aec3_per_block_48k=round(t11 - t10, 3),
+          builder_api_48k_stereo=round(t12 - t11, 3),
+          total=round(t12 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
     # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K1-K5 on
     # the main path (the default pipeline); every path beside them, the

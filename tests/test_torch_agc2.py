@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu.config import (
     AdaptiveDigital as JAdaptiveDigital,
     GainController2 as JAgc2Config,

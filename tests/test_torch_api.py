@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu_torch import api
 from webrtc_audio_processing_tpu_torch import config as cfg_mod
 from webrtc_audio_processing_tpu_torch.api import (
@@ -329,15 +330,10 @@ def test_runtime_pre_gain_ramps_within_the_frame():
 # --------------------------------------------------------------- raising
 
 
-@pytest.mark.parametrize("what", ["injections", "aec_dump", "data_dumper"])
+@pytest.mark.parametrize("what", ["aec_dump"])
 def test_unported_parts_raise_naming_their_roadmap_item(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        if what == "injections":
-            AudioProcessing(injections=object(), device="cpu")
-        elif what == "aec_dump":
-            ap_cpu().attach_aec_dump("dump.npz")
-        else:
-            ap_cpu().attach_data_dumper("dumps")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 12c"):
+        ap_cpu().attach_aec_dump("dump.npz")
 
 
 def test_ring_dtype_other_than_float32_raises(monkeypatch):
@@ -354,6 +350,21 @@ def test_pair_kernel_switch_selects_k6(monkeypatch):
         echo_canceller=cfg_mod.EchoCanceller(enabled=True)))
     ap.process_stream(_noise((160, 1)), 16000)
     assert ap._geo.aec3.pair_kernel
+
+
+def test_pair_phase_switch_selects_the_per_block_path(monkeypatch):
+    """``AEC3_PAIR_PHASE=0``, the JAX package's switch, runs AEC3's
+    per-block path; unset, the pair-phase one."""
+    ap = ap_cpu(cfg_mod.Config().replace(
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True)))
+    ap.process_stream(_noise((160, 1)), 16000)
+    assert ap._geo.aec3.pair_phase
+    monkeypatch.setenv("AEC3_PAIR_PHASE", "0")
+    ap = ap_cpu(cfg_mod.Config().replace(
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True)))
+    err, out = ap.process_stream(_noise((160, 1)), 16000)
+    assert err == 0 and np.isfinite(out).all()
+    assert not ap._geo.aec3.pair_phase
 
 
 # ------------------------------------ the input volume controller (AGC2)

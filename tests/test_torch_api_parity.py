@@ -14,6 +14,7 @@ int16 step (1/32768) is held to 1e-3 of that step.
 import numpy as np
 import pytest
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu import api as j_api
 from webrtc_audio_processing_tpu import config as j_cfg
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu import apm as j_apm
 from webrtc_audio_processing_tpu import config as j_cfg
 
@@ -239,12 +240,6 @@ def test_qmf_split_and_resampling_rates_run(rates):
     assert torch.isfinite(out).all()
 
 
-def test_injections_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apm.ApmGeometry.create(_slice_config(cfg_mod), 48000, 2,
-                               injections=object())
-
-
 def test_port_imports_and_runs_without_jax():
     """With jax unimportable, the port imports and runs one frame on the
     CPU (the desktop pipeline, then the mobile one with AECM), imports the
@@ -314,48 +309,33 @@ def _aec3_cfg_with(**delay):
     return c.replace(delay=dataclasses.replace(c.delay, **delay))
 
 
+# The AEC3 options still to port, each with the item its raise names.
 _UNPORTED_AEC3 = {
-    "pair_phase_false": lambda: _aec3_geo_pair_phase_false(),
-    "debug_taps": lambda: apm.ApmGeometry.create(
-        _aec3_config(), 48000, 2, num_render_channels=2, debug_taps=True),
-    "nree": lambda: _aec3_geo_nree(),
-    "bf16_rings": lambda: apm.ApmGeometry.create(
+    "bf16_rings": (lambda: apm.ApmGeometry.create(
         _aec3_config(), 48000, 2, num_render_channels=2,
-        aec3_ring_dtype="bfloat16"),
-    "fixed_capture_delay": lambda: apm.ApmGeometry.create(
+        aec3_ring_dtype="bfloat16"), "10d"),
+    "down_sampling_by_8": (lambda: apm.ApmGeometry.create(
         _aec3_config(), 48000, 2, num_render_channels=2,
-        aec3_cfg=_aec3_cfg_with(fixed_capture_delay_samples=32)),
-    "down_sampling_by_8": lambda: apm.ApmGeometry.create(
-        _aec3_config(), 48000, 2, num_render_channels=2,
-        aec3_cfg=_aec3_cfg_with(down_sampling_factor=8)),
+        aec3_cfg=_aec3_cfg_with(down_sampling_factor=8)), "11"),
 }
-
-
-def _aec3_geo_pair_phase_false():
-    from webrtc_audio_processing_tpu_torch.models.aec3 import (
-        config as a3cfg,
-        echo_canceller3 as ec3,
-    )
-
-    return ec3.Aec3Geometry.create(a3cfg.EchoCanceller3Config(), 48000, 2,
-                                   2, pair_phase=False)
-
-
-def _aec3_geo_nree():
-    from webrtc_audio_processing_tpu_torch.models.aec3 import (
-        config as a3cfg,
-        echo_canceller3 as ec3,
-    )
-
-    return ec3.Aec3Geometry.create(a3cfg.EchoCanceller3Config(), 48000, 2,
-                                   2, nree=object())
 
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED_AEC3))
 def test_unported_aec3_options_raise(name):
-    """AEC3 runs; its non-default branches raise, naming their item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        _UNPORTED_AEC3[name]()
+    """AEC3 runs; its unported options raise, naming their item."""
+    make, item = _UNPORTED_AEC3[name]
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1 item {item}\)"):
+        make()
+
+
+def test_pair_kernel_needs_the_pair_phase_path():
+    """K6 computes the pair form only: the per-block path with the pair
+    kernel raises rather than run the plain subtractor on the card."""
+    with pytest.raises(ValueError, match="pair_phase"):
+        apm.ApmGeometry.create(_aec3_config(), 48000, 2,
+                               num_render_channels=2, aec3_pair_kernel=True,
+                               aec3_pair_phase=False)
 
 
 def test_aec3_geometry_and_state_build():

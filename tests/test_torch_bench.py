@@ -7,6 +7,7 @@ itself runs only on the card (``chip_smoke.py`` phase 8)."""
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 import chip_smoke
 
 from webrtc_audio_processing_tpu_torch import bench

@@ -7,6 +7,7 @@ machine with a card (no JAX needed):
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -170,7 +171,8 @@ def test_k1_new_callers_match_twin_bit_for_bit(device, table):
     assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
 
 
-@pytest.mark.parametrize("F,W", [(512, 19), (384, 15), (6, 3)])
+@pytest.mark.parametrize("F,W", [(512, 19), (384, 15), (6, 3), (256, 17),
+                                 (128, 13)])
 def test_k2_matches_twin_bit_for_bit(device, F, W):
     rng = np.random.default_rng(F)
     ring = torch.from_numpy(
@@ -1025,3 +1027,164 @@ def test_k1_at_the_mobile_hpf_shape_matches_twin(device):
     st_k, y_k = cuda_biquad.cascade(coeffs, st, x)
     st_p, y_p = cuda_biquad.cascade_plain(coeffs, st, x)
     assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
+
+
+# ----------------------------------- per-block AEC3, injections, builder
+
+
+def _stretch(geo, n, seed, batch, device, graph_cls):
+    """``n`` frames of default_48k's echo scene through a graph of
+    ``graph_cls`` from init_state and eagerly from an equal state: the
+    per-frame outputs and delays of both, and both final states."""
+    rate, channels, _ = chip_smoke.MODES["default_48k"]
+    frame = rate // 100
+    render, capture = chip_smoke.echo_scene(n, seed, range(batch), rate,
+                                            channels)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    got, want = [], []
+    eager = apm.init_state(geo, batch, device)
+    if graph_cls is step_graph.PairGraph:
+        graph = graph_cls(geo, apm.init_state(geo, batch, device))
+        graph.capture()
+        for p in range(n // 2):
+            args = []
+            for f in (2 * p, 2 * p + 1):
+                sl = slice(f * frame, (f + 1) * frame)
+                args += [ren[:, sl], cap[:, sl]]
+            got += [(o.clone(), st["delay_ms"].clone())
+                    for o, _, st in graph.replay(*args)]
+            want += [(o, st["delay_ms"])
+                     for o, _, st in step_graph.step_pair(geo, eager, *args)]
+    else:
+        graph = graph_cls(geo, apm.init_state(geo, batch, device))
+        graph.capture_graphs()
+        for f in range(n):
+            sl = slice(f * frame, (f + 1) * frame)
+            o, _, st = graph.replay(cap[:, sl], ren[:, sl])
+            got.append((o.clone(), st["delay_ms"].clone()))
+            eager, o, _, st = apm.process_stream_pair(geo, eager, cap[:, sl],
+                                                      ren[:, sl])
+            want.append((o, st["delay_ms"]))
+    return got, want, graph.state, eager
+
+
+def _assert_same(got, want, got_state, want_state):
+    for f, ((g, gd), (w, wd)) in enumerate(zip(got, want)):
+        assert torch.equal(g, w) and torch.equal(gd, wd), f
+    g, w = apm.state_to_numpy(got_state), apm.state_to_numpy(want_state)
+    assert set(g) == set(w)
+    for k in w:
+        np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["default_48k", "48k_stereo"])
+def test_per_block_pair_graph_equals_eager(device, mode):
+    """AEC3's per-block path captured as the pair graph, 40 pairs at
+    B = 4 against eager pair steps: outputs, delays and every state leaf
+    bit for bit; K2 twice a block."""
+    geo = chip_smoke.aec3_geometry(mode, False, pair_phase=False)
+    chip_smoke._reset_counts()
+    got, want, gs, es = _stretch(geo, 80, 8, 4, device, step_graph.PairGraph)
+    _assert_same(got, want, gs, es)
+    assert int(gs.aec3_block_ordinal) == 200
+
+
+def test_per_block_pair_kernel_raises(device):
+    with pytest.raises(ValueError, match="pair_phase"):
+        chip_smoke.aec3_geometry("default_48k", True, pair_phase=False)
+
+
+def test_per_block_step_on_the_card_equals_the_cpu(device):
+    """One per-block step from the same state after 30 frames, card and
+    CPU: relative RMS <= 1e-3 per stream and equal delays."""
+    geo = chip_smoke.aec3_geometry("default_48k", False, pair_phase=False)
+    render, capture = chip_smoke.echo_scene(31, 9, range(3), 48000, 2)
+    ren, cap = torch.from_numpy(render), torch.from_numpy(capture)
+    state = apm.init_state(geo, 3, device)
+    for f in range(30):
+        sl = slice(f * 480, (f + 1) * 480)
+        state, *_ = apm.process_stream_pair(geo, state, cap[:, sl].to(device),
+                                            ren[:, sl].to(device))
+    cpu = chip_smoke.select_streams(state, torch.arange(3, device=device),
+                                    "cpu")
+    sl = slice(30 * 480, 31 * 480)
+    _, y_g, _, st_g = apm.process_stream_pair(geo, state, cap[:, sl].to(
+        device), ren[:, sl].to(device))
+    _, y_c, _, st_c = apm.process_stream_pair(geo, cpu, cap[:, sl],
+                                              ren[:, sl])
+    rel = chip_smoke._rel_rms(y_g.cpu().numpy(), y_c.numpy())
+    assert (rel <= 1e-3).all(), rel
+    assert torch.equal(st_g["delay_ms"].cpu(), st_c["delay_ms"])
+
+
+def test_nree_and_predelay_pair_graph_equals_eager(device):
+    """The per-block path with an injected NREE and a 64-sample capture
+    pre-delay, graphed and eager, 20 pairs at B = 4: bit for bit."""
+    from webrtc_audio_processing_tpu_torch import builder
+    from webrtc_audio_processing_tpu_torch.models.aec3 import config as a3
+
+    calls = []
+    cfg, _ = a3.validate(a3.EchoCanceller3Config())
+    cfg = cfg.replace(delay=dataclasses.replace(
+        cfg.delay, fixed_capture_delay_samples=64))
+    geo = chip_smoke.aec3_geometry(
+        "default_48k", False, pair_phase=False, aec3_cfg=cfg,
+        injections=builder.Injections(
+            neural_residual_echo_estimator=builder.NeuralResidualEchoEstimator(
+                chip_smoke._nree_estimate(calls))))
+    got, want, gs, es = _stretch(geo, 40, 10, 4, device,
+                                 step_graph.PairGraph)
+    _assert_same(got, want, gs, es)
+    assert es.aec.capture_predelay.shape[2] == 64
+    assert len(calls) == 10 + 100  # the graph's warm-up and capture; eager
+
+
+def test_injected_frame_graphs_equal_eager_and_half_the_builtin(device):
+    """``chip_smoke.smoke_injections`` on default_48k's frame graphs, 40
+    frames at B = 4: equal to the eager injected steps on every output and
+    leaf, and every output half the built-in AEC3's, bit for bit."""
+    inj = chip_smoke.aec3_geometry("default_48k", False,
+                                   injections=chip_smoke.smoke_injections())
+    got, want, gs, es = _stretch(inj, 40, 11, 4, device,
+                                 step_graph.FrameGraphs)
+    _assert_same(got, want, gs, es)
+    base = chip_smoke.aec3_geometry("default_48k", False)
+    _, builtin, _, _ = _stretch(base, 40, 11, 4, device,
+                                step_graph.FrameGraphs)
+    for (g, gd), (b, bd) in zip(got, builtin):
+        assert torch.equal(g, 0.5 * b) and torch.equal(gd, bd)
+    assert torch.equal(gs.custom_analyzer["frames"],
+                       torch.full((4,), 40, dtype=torch.int32,
+                                  device=device))
+
+
+def test_builder_api_on_the_card_matches_process_stream_pair(device):
+    """The builder's API with ``smoke_injections`` and a field trial,
+    20 frames against ``apm.process_stream_pair`` at B = 1 on its own
+    geometry: bit for bit, delays equal."""
+    from webrtc_audio_processing_tpu_torch import builder
+
+    n = 20
+    render, capture = chip_smoke.echo_scene(n, 12, [0], 48000, 2)
+    inj = chip_smoke.smoke_injections()
+    ap = (builder.AudioProcessingBuilder(
+        chip_smoke.aec3_config(cfg_mod, "default_48k"))
+        .set_field_trials(chip_smoke.BUILDER_TRIALS)
+        .set_echo_control_factory(inj.echo_control_factory)
+        .set_echo_detector(inj.echo_detector)
+        .set_capture_analyzer(inj.capture_analyzer)
+        .set_capture_post_processing(inj.capture_post_processing)
+        .build(device=device))
+    outs, delays = [], []
+    for f in range(n):
+        sl = slice(f * 480, (f + 1) * 480)
+        assert ap.process_reverse_stream(render[0, sl], 48000)[0] == 0
+        err, out = ap.process_stream(capture[0, sl], 48000)
+        assert err == 0
+        outs.append(out)
+        delays.append(ap.get_statistics().delay_ms)
+    direct, direct_delays = chip_smoke.api_direct_outputs(
+        ap._geo, device, render[0], capture[0], n)
+    np.testing.assert_array_equal(np.stack(outs), direct)
+    assert delays == direct_delays

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu.ops import pallas_mf, pallas_pre_echo
 
 from webrtc_audio_processing_tpu_torch.models import post_filter

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu.ops import legacy_resampler as j_lr
 
 from webrtc_audio_processing_tpu_torch.ops import legacy_resampler as lr

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu.config import (
     NoiseSuppressionLevel as JLevel,
 )

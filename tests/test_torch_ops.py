@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu.models import audio_buffer as j_ab
 from webrtc_audio_processing_tpu.models import high_pass_filter as j_hpf
 from webrtc_audio_processing_tpu.models import rms_level as j_rms

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu_torch import apm
 from webrtc_audio_processing_tpu_torch import config as cfg_mod
 from webrtc_audio_processing_tpu_torch.ops import cuda_build

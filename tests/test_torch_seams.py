@@ -8,6 +8,7 @@ happens to be numerically benign."""
 import numpy as np
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 from webrtc_audio_processing_tpu_torch import apm
 from webrtc_audio_processing_tpu_torch import config as cfg_mod
 from webrtc_audio_processing_tpu_torch.models import (

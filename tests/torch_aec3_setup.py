@@ -6,6 +6,7 @@ import jax
 import numpy as np
 import torch
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 import chip_smoke
 
 from webrtc_audio_processing_tpu import apm as j_apm

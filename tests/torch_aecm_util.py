@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tests import torch_threads  # noqa: F401  (one thread a worker)
 import chip_smoke
 
 from webrtc_audio_processing_tpu import apm as j_apm

@@ -15,3 +15,29 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+__all__ = [
+    "AudioProcessing",
+    "AudioProcessingBuilder",
+    "BuiltinAudioProcessingBuilder",
+    "FieldTrials",
+    "RuntimeSetting",
+]
+
+
+def __getattr__(name):
+    # Lazy exports, as the JAX package's __init__.py:37-56: importing the
+    # package stays light for config-only use.
+    if name in ("AudioProcessing", "RuntimeSetting"):
+        from webrtc_audio_processing_tpu_torch import api
+
+        return getattr(api, name)
+    if name in ("AudioProcessingBuilder", "BuiltinAudioProcessingBuilder"):
+        from webrtc_audio_processing_tpu_torch import builder
+
+        return getattr(builder, name)
+    if name == "FieldTrials":
+        from webrtc_audio_processing_tpu_torch import field_trials
+
+        return field_trials.FieldTrials
+    raise AttributeError(name)

@@ -21,8 +21,14 @@ the state and is the applied volume of the next frames;
 recommendation when it made one, else AGC1's. In mobile mode
 (``EchoCanceller(mobile_mode=True)``) AECM reads the delay of
 ``set_stream_delay_ms`` on every capture step.
-``AEC3_PAIR_KERNEL=1`` puts the subtractor on K6 as the JAX package's
-switch does (``echo_canceller3.pair_kernel_from_env``).
+``AEC3_PAIR_KERNEL=1`` puts the subtractor on K6 and ``AEC3_PAIR_PHASE=0``
+runs AEC3's per-block path, as the JAX package's switches do
+(``echo_canceller3.pair_kernel_from_env``, ``pair_phase_from_env``).
+Injected components (``builder.Injections``, usually through
+``builder.AudioProcessingBuilder``) run inside the steps; an injected echo
+control's metrics reach ``get_statistics`` as AEC3's do.
+``attach_data_dumper`` rebuilds the pipeline with AEC3's debug taps on and
+records them per frame until ``detach_data_dumper`` writes them.
 
 Usage::
 
@@ -48,6 +54,7 @@ from webrtc_audio_processing_tpu_torch.models.agc1 import gain_control
 from webrtc_audio_processing_tpu_torch.models.aec3 import (
     echo_canceller3 as ec3,
 )
+from webrtc_audio_processing_tpu_torch.ops import batch as batch_ops
 from webrtc_audio_processing_tpu_torch.utils import metrics
 
 # Error codes (audio_processing.h:663-683).
@@ -145,9 +152,9 @@ def _structure(node, path="state"):
         return ((path, None),)
     if isinstance(node, int):
         return ()
-    if dataclasses.is_dataclass(node):
-        return sum((_structure(getattr(node, f.name), f"{path}.{f.name}")
-                    for f in dataclasses.fields(node)), ())
+    kids = batch_ops.children(node)
+    if kids is not None:
+        return sum((_structure(v, f"{path}.{k}") for k, v in kids), ())
     return ((path, tuple(node.shape), node.dtype),)
 
 
@@ -166,13 +173,13 @@ class AudioProcessing:
 
     def __init__(self, config: cfg_mod.Config | None = None,
                  echo_canceller3_config=None, injections=None, device=None):
-        if injections is not None:
-            raise NotImplementedError(
-                "builder injections are not ported yet (ROADMAP Queue 1 "
-                "item 12)")
         self._device = apm._resolve_device(device)
         self._config = config or cfg_mod.Config()
         self._aec3_config = echo_canceller3_config
+        self._injections = injections
+        # The data dumper's directory and its taps, name -> frames.
+        self._data_dump_dir = None
+        self._data_dump = None
         self._geo = None
         self._geo_key = None
         self._module = None
@@ -213,18 +220,34 @@ class AudioProcessing:
         """AttachAecDump (audio_processing.h:627-640)."""
         raise NotImplementedError(
             "the AEC dump recorder is not ported yet (ROADMAP Queue 1 item "
-            "12)")
+            "12c)")
 
     def detach_aec_dump(self):
         """DetachAecDump: nothing is ever attached."""
         return kNoError
 
     def attach_data_dumper(self, directory: str):
-        """ApmDataDumper analog: AEC3's debug taps."""
-        raise NotImplementedError(
-            "AEC3 debug taps are not ported yet (ROADMAP Queue 1 item 11)")
+        """ApmDataDumper analog (logging/apm_data_dumper.h, the
+        WEBRTC_APM_DEBUG_DUMP build): record AEC3's named internals each
+        frame (the Y2, E2, S2, R2, N2 spectra, the suppressor gain, the
+        linear output; the last block's). The pipeline is rebuilt with the
+        taps on at the next frame. Reading them syncs with the device on
+        every frame."""
+        os.makedirs(directory, exist_ok=True)
+        self._data_dump_dir = directory
+        self._data_dump = {}
+        self._geo = None
+        return kNoError
 
     def detach_data_dumper(self):
+        """Write one ``<name>.npy`` per tap, its frames stacked, and
+        rebuild the pipeline without the taps at the next frame."""
+        for name, frames in (self._data_dump or {}).items():
+            np.save(os.path.join(self._data_dump_dir, f"{name}.npy"),
+                    np.stack(frames))
+        self._data_dump = None
+        self._data_dump_dir = None
+        self._geo = None
         return kNoError
 
     # ------------------------------------------------------------ config
@@ -269,8 +292,11 @@ class AudioProcessing:
             render_input_rate=render_rate or capture_rate,
             num_render_channels=render_channels or 1,
             aec3_cfg=self._aec3_config,
+            injections=self._injections,
+            debug_taps=self._data_dump_dir is not None,
             aec3_stereo_content=self._aec3_stereo_active,
             aec3_pair_kernel=ec3.pair_kernel_from_env(),
+            aec3_pair_phase=ec3.pair_phase_from_env(),
         )
         self._module = apm.module_for(self._geo, self._device)
         self._state = apm.init_state(self._geo, 1, self._device)
@@ -395,6 +421,10 @@ class AudioProcessing:
                 and _item(stats, "multichannel_config_changed")):
             self._handle_stereo_content_flip(
                 bool(_item(stats, "multichannel_content_detected")))
+        if self._data_dump is not None and "aec3_taps" in stats:
+            for name, v in stats["aec3_taps"].items():
+                self._data_dump.setdefault(name, []).append(
+                    v[0].cpu().numpy())
         out_np = out[0].cpu().numpy()
         # Unmute click suppression (audio_processing_impl.cc:1540-1552):
         # the first frame after the output is used again is zeroed.
@@ -491,8 +521,10 @@ class AudioProcessing:
                    RuntimeSetting.CUSTOM_RENDER_SETTING):
             # Forwarded to an injected render pre-processor only
             # (HandleRenderRuntimeSettings, audio_processing_impl.cc:
-            # 1072-1096); the port takes no injections.
-            pass
+            # 1072-1096); no built-in module reads them.
+            rpp = getattr(self._injections, "render_pre_processing", None)
+            if rpp is not None and rpp.set_runtime_setting is not None:
+                rpp.set_runtime_setting(setting)
         elif t == RuntimeSetting.CAPTURE_OUTPUT_USED:
             self._capture_output_used = bool(v)
         return True

@@ -44,6 +44,17 @@ AECM takes AEC3's place on split band 0 (16 kHz: the capture is never
 processed below it), one canceller per (capture, render) channel pair,
 after NS; it reads ``stream_delay_ms``, and its 80 -> 64 rebuffering
 phase is state, so it adds nothing to the period.
+
+Injected components (``builder.Injections``) run at the reference's
+positions: the render pre-processor right after the render copy-in, an
+injected echo detector in place of the built-in one, an injected echo
+control (``EchoControlFactory.create``) in place of AEC3, the capture
+analyzer after the echo detector, the capture post-processor after the
+PostFilter and before the output RMS, and the neural residual echo
+estimator inside AEC3. Their states are fields of ``ApmState``, batch
+first. With ``debug_taps`` the stats carry AEC3's last block's internals
+under ``"aec3_taps"``; ``aec3_pair_phase=False`` runs AEC3's per-block
+capture path.
 """
 
 from __future__ import annotations
@@ -125,6 +136,11 @@ class ApmGeometry:
     render_processing_channels: int
     aec3: ec3.Aec3Geometry | None = None
     aecm: ecm.AecmGeometry | None = None
+    # The injected components (builder.Injections); None when none is.
+    injections: object | None = None
+    # The injected echo control (EchoControlFactory.create's object), in
+    # place of the built-in AEC3 (echo_control.h:51-60).
+    echo_control: object | None = None
     # True when AEC3 runs with stereo render content detection: the host
     # re-creates the geometry when the detector flips (config_selector.cc).
     aec3_dynamic_stereo: bool = False
@@ -144,12 +160,8 @@ class ApmGeometry:
         aec3_stereo_content: bool = False,
         aec3_ring_dtype: str = "float32",
         aec3_pair_kernel: bool = False,
+        aec3_pair_phase: bool = True,
     ) -> "ApmGeometry":
-        if injections is not None:
-            raise NotImplementedError(
-                "builder injections are not ported yet (ROADMAP Queue 1 "
-                "item 12)"
-            )
         capture_output_rate = capture_output_rate or capture_input_rate
         render_input_rate = render_input_rate or capture_input_rate
         render_output_rate = render_output_rate or render_input_rate
@@ -178,14 +190,22 @@ class ApmGeometry:
         ren_channels = (num_render_channels
                         if config.pipeline.multi_channel_render else 1)
 
-        aec_geo = aecm_geo = None
+        aec_geo = aecm_geo = echo_control = None
         dynamic_stereo = False
+        factory = getattr(injections, "echo_control_factory", None)
+        nree = getattr(injections, "neural_residual_echo_estimator", None)
         if config.echo_canceller.enabled and config.echo_canceller.mobile_mode:
             # EchoControlMobileImpl's defaults: the Speakerphone routing,
             # comfort noise off (echo_control_mobile_impl.cc:108-109); it
             # runs on split band 0 only.
             aecm_geo = ecm.AecmGeometry(sample_rate_hz=min(cap_rate, 16000),
                                         echo_mode=3, cng=False)
+        elif config.echo_canceller.enabled and factory is not None:
+            # InitializeEchoController with an injected factory
+            # (audio_processing_impl.cc:1909-1930).
+            cap_ch = (num_capture_channels
+                      if config.pipeline.multi_channel_capture else 1)
+            echo_control = factory.create(cap_rate, ren_channels, cap_ch)
         elif config.echo_canceller.enabled:
             cap_ch = (num_capture_channels
                       if config.pipeline.multi_channel_capture else 1)
@@ -204,11 +224,9 @@ class ApmGeometry:
             active_cfg, _valid = aec3_config.validate(active_cfg)
             aec_geo = ec3.Aec3Geometry.create(
                 active_cfg, cap_rate, ren_channels if stereo_proc else 1,
-                cap_ch, debug_taps=debug_taps, ring_dtype=aec3_ring_dtype,
+                cap_ch, nree=nree, debug_taps=debug_taps,
+                ring_dtype=aec3_ring_dtype, pair_phase=aec3_pair_phase,
                 pair_kernel=aec3_pair_kernel)
-        elif debug_taps:
-            raise NotImplementedError(
-                f"AEC3 debug taps {ec3._ITEM_11}")
 
         return ApmGeometry(
             config=config,
@@ -223,12 +241,16 @@ class ApmGeometry:
             render_processing_channels=ren_channels,
             aec3=aec_geo,
             aecm=aecm_geo,
+            injections=injections,
+            echo_control=echo_control,
             aec3_dynamic_stereo=dynamic_stereo,
         )
 
     @property
     def echo_controller_enabled(self) -> bool:
-        return self.aec3 is not None
+        """AEC3 or an injected echo control runs (not AECM): the condition
+        for mono capture processing (audio_processing_impl.cc:798-806)."""
+        return self.aec3 is not None or self.echo_control is not None
 
     @property
     def capture_processing_channels(self) -> int:
@@ -262,10 +284,10 @@ class ApmGeometry:
     @property
     def post_filter_enabled(self) -> bool:
         """PostFilter::CreateIfNeeded: only at exactly 48 kHz, only with the
-        desktop echo canceller (post_filter.cc:44-52,
+        desktop echo canceller, built in or injected (post_filter.cc:44-52,
         audio_processing_impl.cc:1954-1959)."""
         return (post_filter.is_needed(self.capture_processing_rate)
-                and self.aec3 is not None)
+                and self.echo_controller_enabled)
 
     @property
     def hpf_full_band(self) -> bool:
@@ -380,6 +402,11 @@ class ApmState:
     # The last second of AEC3 delay estimates, newest last (stats only).
     delay_history_ms: torch.Tensor | None = None  # (B, 100) int32
     delay_history_valid: torch.Tensor | None = None  # (B, 100) bool
+    # The injected components' states (builder.Injections), batch first.
+    custom_render_pre: object | None = None
+    custom_capture_post: object | None = None
+    custom_analyzer: object | None = None
+    echo_control: object | None = None
     # AEC3 blocks inserted so far, () int32 on the state's device: the
     # ordinal ``n0`` the JAX package passes to each step (2 blocks in an
     # even frame, 3 in an odd one). Not a leaf of the JAX state.
@@ -398,11 +425,47 @@ def _resolve_device(device):
     return torch.device("cuda")
 
 
+class _BuiltinEchoDetector:
+    """models/echo_detector.py with the EchoDetectorInjection surface, its
+    functions looked up on the module at each call."""
+
+    @staticmethod
+    def init(batch, device):
+        return echo_detector.init_state(batch, device)
+
+    @staticmethod
+    def analyze_render_audio(state, render):
+        return echo_detector.analyze_render_audio(state, render)
+
+    @staticmethod
+    def analyze_capture_audio(state, capture):
+        return echo_detector.analyze_capture_audio(state, capture)
+
+    @staticmethod
+    def get_metrics(state):
+        return echo_detector.get_metrics(state)
+
+
+def ed_module(geo: ApmGeometry):
+    """The active echo detector: the injected one (the SetEchoDetector
+    seam, audio_processing.h:848-879) or the built-in
+    ResidualEchoDetector."""
+    inj = getattr(geo.injections, "echo_detector", None)
+    return inj if inj is not None else _BuiltinEchoDetector
+
+
+def _injected(geo: ApmGeometry, name: str):
+    return getattr(geo.injections, name, None)
+
+
 def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
     """The state of B streams, on the card unless ``device`` says
     otherwise."""
     device = _resolve_device(device)
     c = geo.config
+    render_pre = _injected(geo, "render_pre_processing")
+    capture_post = _injected(geo, "capture_post_processing")
+    analyzer = _injected(geo, "capture_analyzer")
     cap_cfg = geo.capture_buffer_config()
     cla_cfg = c.capture_level_adjustment
     proc_ch = geo.capture_processing_channels
@@ -437,7 +500,7 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
               if c.gain_controller2.enabled else None),
         pf=(post_filter.init_state(batch, proc_ch, device)
             if geo.post_filter_enabled else None),
-        ed=(echo_detector.init_state(batch, device)
+        ed=(ed_module(geo).init(batch, device)
             if c.echo_canceller.enabled else None),
         input_rms=rms_level.init_state(batch, device),
         output_rms=rms_level.init_state(batch, device),
@@ -450,6 +513,20 @@ def init_state(geo: ApmGeometry, batch: int, device=None) -> ApmState:
         delay_history_valid=(torch.zeros((batch, DELAY_HISTORY_FRAMES),
                                          dtype=torch.bool, device=device)
                              if has_aec else None),
+        custom_render_pre=(
+            render_pre.init(geo.render_processing_rate,
+                            geo.render_processing_channels, batch, device)
+            if render_pre is not None else None),
+        custom_capture_post=(
+            capture_post.init(geo.capture_processing_rate, proc_ch, batch,
+                              device)
+            if capture_post is not None else None),
+        custom_analyzer=(
+            analyzer.init(geo.capture_processing_rate, proc_ch, batch,
+                          device)
+            if analyzer is not None else None),
+        echo_control=(geo.echo_control.init_state(batch, device)
+                      if geo.echo_control is not None else None),
         aec3_block_ordinal=(torch.zeros((), dtype=torch.int32, device=device)
                             if has_aec else None),
     )
@@ -491,6 +568,10 @@ class Apm(nn.Module):
                      if c.gain_controller2.enabled else None)
         self.post_filter = (post_filter.PostFilter()
                             if geo.post_filter_enabled else None)
+        self.ed = ed_module(geo)
+        self.render_pre = _injected(geo, "render_pre_processing")
+        self.capture_post = _injected(geo, "capture_post_processing")
+        self.capture_analyzer = _injected(geo, "capture_analyzer")
         self.agc1 = None
         self.agc_mgr = None
         if c.gain_controller1.enabled:
@@ -517,8 +598,13 @@ class Apm(nn.Module):
         Returns (state, render_out, render_bands)."""
         rb = self.render_buffer
         rbuf, r = rb.copy_from(state.render_buffer, render)
+        # The injected render pre-processor (:1659-1661), ahead of every
+        # render consumer.
+        if self.render_pre is not None:
+            pre, r = self.render_pre.process(state.custom_render_pre, r)
+            state = dataclasses.replace(state, custom_render_pre=pre)
         if state.ed is not None and feed_valid is not False:
-            ed = echo_detector.analyze_render_audio(state.ed, r)
+            ed = self.ed.analyze_render_audio(state.ed, r)
             if feed_valid is not None and feed_valid is not True:
                 ed = batch_ops.tree_where(feed_valid, ed, state.ed)
             state = dataclasses.replace(state, ed=ed)
@@ -661,16 +747,25 @@ class Apm(nn.Module):
         if self.ns is not None:
             new_ns = self.ns.analyze(state.ns, bands[:, 0])
 
-        # AEC3 (:1407-1416) at this frame's parity and block ordinal.
+        # AEC3 (:1407-1416) at this frame's parity and block ordinal, or
+        # the injected echo control (echo_control.h).
         stats = {}
         new_aec = state.aec
+        new_echo_control = state.echo_control
         ordinal = state.aec3_block_ordinal
         linear_out = None
         if state.aec is not None:
             parity = f % 2
-            new_aec, bands, linear_out = ec3.process_frame(
+            aec_out = ec3.process_frame(
                 geo.aec3, state.aec, render_bands, bands, parity, ordinal)
+            new_aec, bands, linear_out = aec_out[:3]
+            if geo.aec3.debug_taps:
+                stats["aec3_taps"] = aec_out[3]
             ordinal = ordinal + (3 if parity else 2)
+        elif new_echo_control is not None:
+            new_echo_control, bands, linear_out = \
+                geo.echo_control.process_frame(new_echo_control,
+                                               render_bands, bands, f % 2)
 
         # AECM (mobile mode, :1393-1405 through EchoControlMobileImpl) on
         # band 0: NS.Process runs before it (:1400-1402), the inverse of
@@ -723,8 +818,14 @@ class Apm(nn.Module):
         # Echo detector capture analysis (:1462-1465).
         new_ed = state.ed
         if state.ed is not None:
-            new_ed = echo_detector.analyze_capture_audio(state.ed, y)
-            stats.update(echo_detector.get_metrics(new_ed))
+            new_ed = self.ed.analyze_capture_audio(state.ed, y)
+            stats.update(self.ed.get_metrics(new_ed))
+
+        # The injected capture analyzer (CustomAudioAnalyzer::Analyze,
+        # :1468-1470).
+        new_analyzer = state.custom_analyzer
+        if self.capture_analyzer is not None:
+            new_analyzer = self.capture_analyzer.analyze(new_analyzer, y)
 
         # AGC2 (:1472-1477).
         if self.agc2 is not None:
@@ -735,6 +836,12 @@ class Apm(nn.Module):
         new_pf = state.pf
         if self.post_filter is not None:
             new_pf, y = self.post_filter(state.pf, y)
+
+        # The injected capture post-processor (CustomProcessing,
+        # :1483-1485).
+        new_post = state.custom_capture_post
+        if self.capture_post is not None:
+            new_post, y = self.capture_post.process(new_post, y)
 
         output_rms = rms_level.analyze(state.output_rms, y)
 
@@ -758,6 +865,9 @@ class Apm(nn.Module):
             agc2=new_agc2,
             pf=new_pf,
             ed=new_ed,
+            custom_capture_post=new_post,
+            custom_analyzer=new_analyzer,
+            echo_control=new_echo_control,
             input_rms=input_rms,
             output_rms=output_rms,
             frame_parity=torch.remainder(state.frame_parity + 1, 2).to(
@@ -775,6 +885,9 @@ class Apm(nn.Module):
                     state.delay_history_valid,
                     stats["aec3_external_delay_valid"]),
             )
+        elif new_echo_control is not None:
+            stats.update(geo.echo_control.get_metrics(new_echo_control))
+        if linear_out is not None:
             # GetLinearAecOutput (audio_processing.h:584): the 16 kHz
             # linear AEC error of this frame, (B, 160, C).
             stats["linear_aec_output"] = linear_out
@@ -863,9 +976,11 @@ def process_stream_pair(geo: ApmGeometry, state: ApmState,
 
 def tree_to_state(template, src, path: str = "state"):
     """Fill the port state ``template`` (for structure, dtypes and trailing
-    shapes) from a JAX state pytree with numpy leaves, field by field. A
-    plain-int field of the template (the frame counter) and a 0-d tensor
-    (AEC3's block ordinal, which the JAX state does not hold) are kept."""
+    shapes) from a JAX state pytree with numpy leaves, field by field; an
+    injected component's dicts, tuples and lists key by key. A plain-int
+    field of the template (the frame counter) and a 0-d tensor (AEC3's
+    block ordinal, which the JAX state does not hold) are kept: an injected
+    per-stream scalar is a (B,) tensor."""
     if template is None:
         if src is not None:
             raise ValueError(f"{path}: the port has no state here")
@@ -886,6 +1001,16 @@ def tree_to_state(template, src, path: str = "state"):
                 raise ValueError(f"{path}: state the port does not run: "
                                  f"{extra}")
         return type(template)(**out)
+    kids = batch_ops.children(template)
+    if kids is not None:
+        src_kids = batch_ops.children(src)
+        if src_kids is None or [k for k, _ in src_kids] != [k for k, _ in
+                                                            kids]:
+            raise ValueError(f"{path}: the JAX state's structure differs")
+        src_map = dict(src_kids)
+        return batch_ops.rebuild(template, {
+            k: tree_to_state(v, src_map[k], f"{path}[{k!r}]")
+            for k, v in kids})
     if src is None:
         raise ValueError(f"{path}: missing in the JAX state")
     arr = np.asarray(src)
@@ -919,9 +1044,11 @@ def state_from_jax(tree, geo: ApmGeometry, frame_counter: int = 0) -> ApmState:
 
 def state_to_numpy(state) -> dict:
     """Flatten a state to {dotted path: numpy array}, copies (the AEC3 rings
-    change in place); the paths are the JAX pytree's attribute paths, and
-    AEC3's block ordinal is the 0-d leaf ``aec3_block_ordinal`` (the frame
-    counter is not a leaf)."""
+    change in place); the paths are the JAX pytree's key paths
+    (``jax.tree_util.keystr`` without its leading dot: ``a.b`` for fields,
+    ``a['k']`` for an injected component's dict keys, ``a[0]`` for its
+    sequences), and AEC3's block ordinal is the 0-d leaf
+    ``aec3_block_ordinal`` (the frame counter is not a leaf)."""
     out = {}
 
     def walk(node, path):
@@ -931,6 +1058,9 @@ def state_to_numpy(state) -> dict:
             for f in dataclasses.fields(node):
                 walk(getattr(node, f.name),
                      f"{path}.{f.name}" if path else f.name)
+        elif isinstance(node, (dict, tuple, list)):
+            for k, v in batch_ops.children(node):
+                walk(v, f"{path}[{k!r}]")
         else:
             out[path] = node.detach().cpu().numpy().copy()
 

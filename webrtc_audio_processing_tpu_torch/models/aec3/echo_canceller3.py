@@ -8,12 +8,26 @@ frame parity, a Python int (it fixes the frame's block count, a static
 shape); the ring write positions follow the block ordinal ``n0``, a 0-d
 int32 tensor on the state's device, both uniform across the batch.
 
-Only the pair-phase capture path (``pair_phase=True``) is ported. Its
+Two capture paths, as in the JAX twin. The pair-phase path
+(``pair_phase=True``, the default) runs the delay stack for every block of
+the frame first, then the echo remover's three-phase pair form; its
 subtractor is the plain ``subtractor.process_pair`` by default, or the pair
-kernel K6 with ``pair_kernel=True`` (see ``echo_remover.process_capture_pair``).
-The geometry takes the choice as an argument only; a script that follows the
-JAX package's ``AEC3_PAIR_KERNEL`` switch reads it with
+kernel K6 with ``pair_kernel=True`` (see
+``echo_remover.process_capture_pair``).
+The per-block path (``pair_phase=False``, the JAX package's
+``AEC3_PAIR_PHASE=0``) runs each block through the whole of
+BlockProcessor::ProcessCapture in the reference's order, with no pair-phase
+staleness; K6 computes the pair form only, so ``pair_kernel`` with it
+raises. The geometry takes the choices as arguments only; a script that
+follows the JAX package's ``AEC3_PAIR_KERNEL`` switch reads it with
 ``pair_kernel_from_env``.
+
+With ``fixed_capture_delay_samples > 0`` in the config, the capture runs
+through a fixed pre-delay line per split band before blocking
+(block_delay_buffer.cc). An injected neural residual echo estimator
+(``nree``, builder.NeuralResidualEchoEstimator) replaces the residual
+echo estimate on every block. With ``debug_taps``, ``process_frame`` also
+returns the last block's named internals (the ApmDataDumper analog).
 """
 
 from __future__ import annotations
@@ -49,6 +63,13 @@ def pair_kernel_from_env() -> bool:
     return os.environ.get("AEC3_PAIR_KERNEL", "0") == "1"
 
 
+def pair_phase_from_env() -> bool:
+    """The JAX package's ``AEC3_PAIR_PHASE`` switch
+    (webrtc_audio_processing_tpu/models/aec3/echo_canceller3.py:72-73): the
+    pair-phase path unless it is exactly "0"."""
+    return os.environ.get("AEC3_PAIR_PHASE", "1") != "0"
+
+
 @dataclass(frozen=True)
 class Aec3Geometry:
     config: EchoCanceller3Config
@@ -58,6 +79,13 @@ class Aec3Geometry:
     num_capture_channels: int
     buffer: rb.BufferGeometry
     delay: de.DelayGeometry
+    # The injected neural residual echo estimator
+    # (builder.NeuralResidualEchoEstimator); None: the model-based one.
+    nree: object | None = None
+    # process_frame also returns the last block's named internals.
+    debug_taps: bool = False
+    # The pair-phase capture path; False: the per-block path.
+    pair_phase: bool = True
     # The subtractor on the pair kernel K6 (ops/cuda_subtractor.py).
     pair_kernel: bool = False
 
@@ -69,23 +97,17 @@ class Aec3Geometry:
                ring_dtype: str = "float32",
                pair_phase: bool = True,
                pair_kernel: bool = False) -> "Aec3Geometry":
-        unported = [
-            (not pair_phase,
-             "the per-block AEC3 capture path (pair_phase=False)"),
-            (debug_taps, "AEC3 debug taps"),
-            (nree is not None,
-             "the injected neural residual echo estimator"),
-            (config.delay.fixed_capture_delay_samples > 0,
-             "the fixed capture pre-delay"),
+        if pair_kernel and not pair_phase:
+            # The JAX twin ignores the flag there; the port does not run
+            # the plain subtractor on the card in its place.
+            raise ValueError("the pair kernel K6 computes the pair-phase "
+                             "form only; pair_kernel needs pair_phase")
+        if pair_kernel and not subtractor_kernel.supported(config):
             # The JAX twin runs the XLA subtractor there instead
             # (echo_remover.py:1051-1056); the port has no second route.
-            (pair_kernel and not subtractor_kernel.supported(config),
-             "the pair kernel with a coarse filter longer than the refined "
-             "one"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"{what} {_ITEM_11}")
+            raise NotImplementedError(
+                f"the pair kernel with a coarse filter longer than the "
+                f"refined one {_ITEM_11}")
         return Aec3Geometry(
             config=config,
             sample_rate_hz=sample_rate_hz,
@@ -96,6 +118,9 @@ class Aec3Geometry:
                                             num_render,
                                             ring_dtype=ring_dtype),
             delay=de.DelayGeometry.create(config),
+            nree=nree,
+            debug_taps=debug_taps,
+            pair_phase=pair_phase,
             pair_kernel=pair_kernel,
         )
 
@@ -116,7 +141,9 @@ class EchoCanceller3State:
     saturated_microphone: torch.Tensor  # (B,) bool
     mc_detector: mccd.MultiChannelContentDetectorState
     mc_config_changed: torch.Tensor  # (B,) bool: the host re-creates
-    capture_predelay: torch.Tensor  # (B, bands, 0, C_cap): no pre-delay
+    # BlockDelayBuffer (block_delay_buffer.cc): the fixed capture pre-delay
+    # line, (B, bands, fixed_capture_delay_samples, C_cap); width 0 when off.
+    capture_predelay: torch.Tensor
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -224,6 +251,24 @@ def _detect_saturation(y):
     return torch.any((torch.abs(y) >= 32700.0).flatten(1), dim=1)
 
 
+def _process_capture_block(geo: Aec3Geometry, state: EchoCanceller3State,
+                           capture_block, echo_path_gain_change,
+                           n: torch.Tensor, pending_count: int):
+    """BlockProcessorImpl::ProcessCapture (block_processor.cc:84-200) for
+    one capture block (B, bands, 64, C): the delay stack, then the echo
+    remover's per-block form. Returns (state, out_block, linear (B, C, 64),
+    taps or None)."""
+    state, delay_change, est_delay, est_valid = _delay_phase_block(
+        geo, state, capture_block, n)
+    taps = {} if geo.debug_taps else None
+    remover, out_block, linear = er.process_capture(
+        geo.config, state.remover, geo.buffer,
+        rb.RenderView(state.buffer, n, pending_count), capture_block,
+        delay_change, echo_path_gain_change, state.saturated_microphone,
+        est_delay, est_valid, nree=geo.nree, taps=taps)
+    return state.replace(remover=remover), out_block, linear, taps
+
+
 def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
                   render_frame, capture_frame, parity: int,
                   n0: torch.Tensor):
@@ -235,11 +280,19 @@ def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
     C_cap) in floatS16; ``parity`` the frame's parity (a Python int) and
     ``n0`` the number of blocks inserted before it (a 0-d int32 tensor).
     The render rings are updated in place. Returns (state, out_frame (B,
-    bands, 160, C_cap), linear_frame (B, 160, C_cap))."""
+    bands, 160, C_cap), linear_frame (B, 160, C_cap)), and with
+    ``debug_taps`` the last block's taps, {name: (B, ...)}, fourth."""
     cfg = geo.config
     # AnalyzeCapture saturation scan (echo_canceller3.cc:862-874).
     state = state.replace(
         saturated_microphone=_detect_saturation(capture_frame[:, 0]))
+    # The fixed capture pre-delay (echo_canceller3.cc:902-906,
+    # block_delay_buffer.cc): a D-sample delay line per split band, after
+    # the undelayed saturation scan and before blocking.
+    if cfg.delay.fixed_capture_delay_samples > 0:
+        cat = torch.cat([state.capture_predelay, capture_frame], dim=2)
+        capture_frame = cat[:, :, :FRAME_SIZE]
+        state = state.replace(capture_predelay=cat[:, :, FRAME_SIZE:])
 
     # Stereo-content detection on the render frame (:969-1005).
     mc = cfg.multi_channel
@@ -280,24 +333,36 @@ def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
                           render_event_pending=event)
     n = n0 + len(r_blocks)
 
-    # Capture side: the delay stack for every block, then the echo
-    # remover's three-phase pair form.
+    # Capture side: block, process, reframe.
     c_blocks, c_carry = _split_blocks(capture_frame,
                                       state.capture_blocker_carry, parity)
     pending_count = 2 if parity == 0 else rb.PAIR_BLOCKS
-    views, dchanges, edelays, evalids = [], [], [], []
-    for blk in c_blocks:
-        state, dch, edl, evl = _delay_phase_block(geo, state, blk, n)
-        views.append(rb.RenderView(state.buffer, n, pending_count))
-        dchanges.append(dch)
-        edelays.append(edl)
-        evalids.append(evl)
-    remover, outs, linears = er.process_capture_pair(
-        cfg, state.remover, geo.buffer, views, c_blocks, dchanges,
-        torch.zeros_like(state.saturated_microphone),
-        state.saturated_microphone, edelays, evalids,
-        pair_kernel=geo.pair_kernel)
-    state = state.replace(remover=remover)
+    level_change = torch.zeros_like(state.saturated_microphone)
+    taps = None
+    if geo.pair_phase:
+        # The delay stack for every block, then the echo remover's
+        # three-phase pair form.
+        views, dchanges, edelays, evalids = [], [], [], []
+        for blk in c_blocks:
+            state, dch, edl, evl = _delay_phase_block(geo, state, blk, n)
+            views.append(rb.RenderView(state.buffer, n, pending_count))
+            dchanges.append(dch)
+            edelays.append(edl)
+            evalids.append(evl)
+        taps = {} if geo.debug_taps else None
+        remover, outs, linears = er.process_capture_pair(
+            cfg, state.remover, geo.buffer, views, c_blocks, dchanges,
+            level_change, state.saturated_microphone, edelays, evalids,
+            pair_kernel=geo.pair_kernel, nree=geo.nree, taps=taps)
+        state = state.replace(remover=remover)
+    else:
+        # Each block through the whole block processor in turn.
+        outs, linears = [], []
+        for blk in c_blocks:
+            state, out_blk, linear, taps = _process_capture_block(
+                geo, state, blk, level_change, n, pending_count)
+            outs.append(out_blk)
+            linears.append(linear)
 
     out_frame, out_carry = _frame_from_blocks(
         outs, state.output_framer_carry, parity)
@@ -309,6 +374,8 @@ def process_frame(geo: Aec3Geometry, state: EchoCanceller3State,
         output_framer_carry=out_carry,
         linear_framer_carry=linear_carry[:, 0],
     )
+    if geo.debug_taps:
+        return state, out_frame, linear_frame[:, 0], taps
     return state, out_frame, linear_frame[:, 0]
 
 
@@ -335,3 +402,31 @@ def get_metrics(geo: Aec3Geometry, state: EchoCanceller3State) -> dict:
         "aec3_external_delay_valid": aec.external_delay_valid,
         "aec3_clockdrift_level": state.delay.clockdrift.level,
     }
+
+
+class EchoControl:
+    """This AEC3 behind the EchoControl surface (api/audio/echo_control.h)
+    that an injected ``builder.EchoControlFactory`` returns: ``init_state``,
+    ``process_frame(state, render_bands, capture_bands, parity)`` and
+    ``get_metrics``. Its state is {"aec": EchoCanceller3State, "n0": (B,)
+    int32}, the block ordinal kept per stream (uniform across the batch)
+    and advanced on the device, so the frames need nothing else."""
+
+    def __init__(self, geo: Aec3Geometry):
+        self.geo = geo
+
+    def init_state(self, batch: int, device) -> dict:
+        return {"aec": init_state(self.geo, batch, device),
+                "n0": torch.zeros((batch,), dtype=torch.int32,
+                                  device=device)}
+
+    def process_frame(self, state: dict, render_bands, capture_bands,
+                      parity: int):
+        aec, out, linear = process_frame(
+            self.geo, state["aec"], render_bands, capture_bands, parity,
+            state["n0"][0])[:3]
+        return ({"aec": aec, "n0": state["n0"] + (3 if parity else 2)},
+                out, linear)
+
+    def get_metrics(self, state: dict) -> dict:
+        return get_metrics(self.geo, state["aec"])

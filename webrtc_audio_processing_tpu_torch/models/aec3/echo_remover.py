@@ -5,7 +5,10 @@ Port of ``webrtc_audio_processing_tpu/models/aec3/echo_remover.py``
 residual_echo_estimator.cc, suppression_gain.cc with
 dominant_nearend_detector.cc and moving_average.cc, suppression_filter.cc).
 The main path runs ``process_capture_pair``, all capture blocks of one frame
-in three phases; the per-block ``process_capture`` is not ported.
+in three phases; the per-block path runs ``process_capture``, one block in
+the reference's order. Both take an injected neural residual echo estimator
+(``nree``) in place of the model-based residual echo, and fill a ``taps``
+dict with the last block's named internals when given one.
 """
 
 from __future__ import annotations
@@ -650,19 +653,201 @@ def _form_linear_filter_output(config, last_refined, out):
     return e, use_refined
 
 
-def process_capture(*args, **kwargs):
-    """EchoRemoverImpl::ProcessCapture for one block: the per-block path."""
-    raise NotImplementedError(
-        "the per-block echo remover (echo_remover.process_capture) is not "
-        "ported yet (ROADMAP Queue 1 item 11); the main path runs "
-        "process_capture_pair")
+def _window_bounds(config: EchoCanceller3Config, state: EchoRemoverState,
+                   geo: rb.BufferGeometry):
+    """(p_ref_max, spec_win_len, W_b): the partitions of the longer filter
+    (a coarse filter may be configured longer than the refined one,
+    subtractor_unittest.cc:253), the spectra window's width and the
+    blocks window's."""
+    p_ref_max = max(state.subtractor.refined.H.shape[2],
+                    state.subtractor.coarse.H.shape[2])
+    headroom_blocks = int(config.delay.delay_headroom_samples) // 64
+    delay_bound = max(config.filter.refined.length_blocks, headroom_blocks + 1)
+    L = geo.num_blocks
+    spec_win_len = min(
+        max(p_ref_max, delay_bound + 2)
+        + max(config.echo_model.render_post_window_size, 1) + 1, L)
+    return p_ref_max, spec_win_len, min(delay_bound, L)
+
+
+def _masked_sum(spec_win: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """The render spectra of a window (B, P, C, 65) summed over its first
+    ``size`` (B,) partitions and the channels: (B, 65)."""
+    pidx = torch.arange(spec_win.shape[1], device=spec_win.device)
+    keep = (pidx[None, :] < size[:, None])[:, :, None, None]
+    return torch.sum(torch.where(keep, spec_win, 0.0), dim=(1, 2))
+
+
+def _suppress_block(config: EchoCanceller3Config, geo: rb.BufferGeometry,
+                    view: rb.RenderView, carry: dict, y0, sub_out, spec_win,
+                    blocks_win, capture_block, external_delay,
+                    external_delay_valid, narrow_peak_band, nree, taps):
+    """The echo remover after the subtractor for one block
+    (echo_remover.cc:352-450): the linear filter output, the Y and E
+    spectra, the AEC state, comfort noise, the residual echo (or the
+    injected estimator's), the suppression gain and filter. ``carry``
+    holds aec, cng, residual, supp_gain, supp_filter, e_old, y_old and
+    use_refined; returns (carry, out block (B, bands, 64, C), e (B, C,
+    64)). ``taps``, when a dict, takes this block's named internals."""
+    e, use_refined = _form_linear_filter_output(
+        config, carry["use_refined"], sub_out)
+    YE = afft.padded_fft(torch.stack([y0, e], dim=1),
+                         torch.stack([carry["y_old"], carry["e_old"]], dim=1),
+                         "sqrt_hanning")
+    Y, E = YE[:, 0], YE[:, 1]
+    S2_linear = afft.spectrum(Y - E)
+    Y2 = afft.spectrum(Y)
+    E2 = afft.spectrum(E)
+
+    aec = aecs.update(
+        config, carry["aec"], geo, view, external_delay,
+        external_delay_valid, sub_out["refined_frequency_responses"],
+        sub_out["refined_impulse_responses"],
+        sub_out["refined_current_size"], E2, Y2, sub_out,
+        spec_win=spec_win, blocks_win=blocks_win)
+
+    usable = aec.usable_linear_estimate[:, None, None]
+    nearend_spectrum = torch.where(usable, E2, Y2)
+    Y_fft = torch.where(usable, E, Y)
+    cng_state, N_low, N_high, N2 = comfort_noise_compute(
+        config, carry["cng"], aec.capture_signal_saturation,
+        nearend_spectrum)
+    supp_gain_state = carry["supp_gain"]
+    transparent = aecs.transparent_mode_active(config, aec)
+    residual_state, R2, R2_unbounded = residual_echo_estimate(
+        config, carry["residual"], aec, S2_linear, Y2,
+        supp_gain_state.dn_nearend_state, transparent,
+        sub_out["refined_current_size"], spec_win)
+    x_block = blocks_win[:, 0]  # (B, bands, 64, C_ren)
+    if nree is not None:
+        # The injected estimate replaces the model-based R2
+        # (neural_residual_echo_estimator.h:45-55): the render block, y, e
+        # and the S2, Y2, E2 power spectra.
+        R2, R2_unbounded = nree.estimate(
+            x_block[:, 0].transpose(1, 2), y0, e, S2_linear, Y2, E2,
+            supp_gain_state.dn_nearend_state)
+
+    nearend_for_gain = torch.where(usable, torch.minimum(E2, Y2), Y2)
+    echo_spectrum = torch.where(usable, S2_linear, R2)
+    supp_gain_state, G, high_gain = suppression_gain_compute(
+        config, supp_gain_state, nearend_for_gain, echo_spectrum, R2,
+        R2_unbounded, N2, narrow_peak_band, aec.saturated_echo, x_block,
+        config.echo_removal_control.has_clock_drift)
+    supp_filter_state, out = suppression_filter_apply(
+        carry["supp_filter"], N_low, N_high, G, high_gain, Y_fft,
+        capture_block)
+    if taps is not None:
+        # The reference's ApmDataDumper names (echo_remover.cc:472-495).
+        taps.update({
+            "aec3_Y2": Y2,
+            "aec3_E2": E2,
+            "aec3_S2_linear": S2_linear,
+            "aec3_R2": R2,
+            "aec3_N2": N2,
+            "aec3_suppressor_gain": G,
+            "aec3_output": out[:, 0].transpose(1, 2),
+            "aec3_linear_aec_output": e,
+            "aec3_usable_linear_estimate": aec.usable_linear_estimate,
+            "aec3_filter_delay": aec.min_filter_delay,
+        })
+    carry = dict(carry, aec=aec, cng=cng_state, residual=residual_state,
+                 supp_gain=supp_gain_state, supp_filter=supp_filter_state,
+                 e_old=e, y_old=y0, use_refined=use_refined)
+    return carry, out, e
+
+
+def _new_state(carry: dict, sub_state, analyzer, hangover):
+    return EchoRemoverState(
+        subtractor=sub_state,
+        analyzer=analyzer,
+        aec=carry["aec"],
+        cng=carry["cng"],
+        residual=carry["residual"],
+        supp_gain=carry["supp_gain"],
+        supp_filter=carry["supp_filter"],
+        e_old=carry["e_old"],
+        y_old=carry["y_old"],
+        gain_change_hangover=hangover.to(_I32),
+        refined_last_selected=carry["use_refined"],
+    )
+
+
+def process_capture(config: EchoCanceller3Config, state: EchoRemoverState,
+                    geo: rb.BufferGeometry, buf: rb.RenderView,
+                    capture_block, delay_change, gain_change,
+                    capture_signal_saturation, external_delay,
+                    external_delay_valid, nree=None, taps=None):
+    """EchoRemoverImpl::ProcessCapture (echo_remover.cc:236-450) for one
+    block, the per-block path (the JAX twin's ``process_capture``).
+
+    buf: the block's rb.RenderView after alignment; capture_block (B,
+    bands, 64, C); delay_change, gain_change, capture_signal_saturation,
+    external_delay_valid (B,) bool, external_delay (B,) int32. The
+    analyzer and the initial-state transition see this block's AEC state
+    (no pair-phase staleness). Returns (state, out block (B, bands, 64,
+    C), linear e (B, C, 64))."""
+    y0 = capture_block[:, 0].transpose(1, 2)  # (B, C, 64)
+    p_ref_max, spec_win_len, W_b = _window_bounds(config, state, geo)
+    # One span read serves the spectra and the FFT windows.
+    sf_rows = rb.sf_window(geo, buf, spec_win_len)
+    spec_win = rb.sf_spectrum(geo, sf_rows)
+    X_window = rb.sf_fft(geo, sf_rows[:, :p_ref_max])
+    blocks_win = rb.block_window_back(geo, buf, W_b)
+
+    # Gain-change hangover: act once per frame (echo_remover.cc:317-333).
+    gain_change = gain_change & (state.gain_change_hangover == 0)
+    hangover = torch.where(gain_change, 3,
+                           torch.clamp(state.gain_change_hangover - 1, min=0))
+
+    aec = state.aec.replace(
+        capture_signal_saturation=capture_signal_saturation)
+    sub_state = subt.handle_echo_path_change(config, state.subtractor,
+                                             delay_change)
+    aec = aecs.handle_echo_path_change(config, aec, delay_change, gain_change)
+    supp_gain_state = tree_where(
+        delay_change, set_initial_state(config, state.supp_gain, True),
+        state.supp_gain)
+
+    analyzer = subt.analyzer_update(config, state.analyzer, spec_win,
+                                    blocks_win[:, 0], aec.min_filter_delay)
+
+    # The initial-state transition (echo_remover.cc:344-348).
+    transition = aec.transition_triggered
+    sub_state = tree_where(transition, subt.exit_initial_state(config,
+                                                               sub_state),
+                           sub_state)
+    supp_gain_state = tree_where(
+        transition, set_initial_state(config, supp_gain_state, False),
+        supp_gain_state)
+
+    spectra_win = spec_win[:, :p_ref_max]
+    sub_state, sub_out = subt.process(
+        config, sub_state, X_window,
+        _masked_sum(spectra_win, sub_state.refined.current_size),
+        _masked_sum(spectra_win, sub_state.coarse.current_size), y0,
+        analyzer, capture_signal_saturation)
+    sub_out["refined_frequency_responses"] = \
+        sub_state.refined_frequency_responses
+    sub_out["refined_impulse_responses"] = sub_state.refined_impulse_responses
+    sub_out["refined_current_size"] = sub_state.refined.current_size
+
+    carry = dict(aec=aec, cng=state.cng, residual=state.residual,
+                 supp_gain=supp_gain_state, supp_filter=state.supp_filter,
+                 e_old=state.e_old, y_old=state.y_old,
+                 use_refined=state.refined_last_selected)
+    carry, out, e = _suppress_block(
+        config, geo, buf, carry, y0, sub_out, spec_win, blocks_win,
+        capture_block, external_delay, external_delay_valid,
+        analyzer.narrow_peak_band, nree, taps)
+    return _new_state(carry, sub_state, analyzer, hangover), out, e
 
 
 def process_capture_pair(config: EchoCanceller3Config,
                          state: EchoRemoverState, geo: rb.BufferGeometry,
                          views, capture_blocks, delay_changes, gain_change,
                          capture_signal_saturation, external_delays,
-                         external_delay_valids, pair_kernel: bool = False):
+                         external_delay_valids, pair_kernel: bool = False,
+                         nree=None, taps=None):
     """EchoRemoverImpl::ProcessCapture (echo_remover.cc:236-450) for all
     capture blocks of one frame, in the JAX twin's three phases:
 
@@ -675,7 +860,8 @@ def process_capture_pair(config: EchoCanceller3Config,
        (``subtractor_kernel.process_pair_kernel``). The geometry allows
        ``pair_kernel`` only where the coarse filter is no longer than the
        refined one (``subtractor_kernel.supported``);
-    C) per block: AEC state, comfort noise, residual echo, suppression.
+    C) per block: AEC state, comfort noise, residual echo (or the injected
+       ``nree``'s), suppression; ``taps`` takes the last block's.
 
     views: one rb.RenderView per block; capture_blocks (B, bands, 64, C)
     each; delay_changes, external_delays, external_delay_valids (B,) each;
@@ -687,15 +873,7 @@ def process_capture_pair(config: EchoCanceller3Config,
     nb = len(views)
     L = geo.num_blocks
     y0s = [cb[:, 0].transpose(1, 2) for cb in capture_blocks]  # (B, C, 64)
-
-    p_ref_max = max(state.subtractor.refined.H.shape[2],
-                    state.subtractor.coarse.H.shape[2])
-    headroom_blocks = int(config.delay.delay_headroom_samples) // 64
-    delay_bound = max(config.filter.refined.length_blocks, headroom_blocks + 1)
-    spec_win_len = min(
-        max(p_ref_max, delay_bound + 2)
-        + max(config.echo_model.render_post_window_size, 1) + 1, L)
-    W_b = min(delay_bound, L)
+    p_ref_max, spec_win_len, W_b = _window_bounds(config, state, geo)
 
     # Phase A1: each block's windows are contiguous spans whose starts move
     # by -1 (sf) or +1 (blocks) per block except across one delay jump, so
@@ -765,83 +943,30 @@ def process_capture_pair(config: EchoCanceller3Config,
             delay_changes, transitions, capture_signal_saturation)
 
     # Phase C: per-block AEC state, comfort noise, residual, suppression.
-    aec = state.aec.replace(
-        capture_signal_saturation=capture_signal_saturation)
-    cng_state = state.cng
-    residual_state = state.residual
-    supp_gain_state = state.supp_gain
-    supp_filter_state = state.supp_filter
-    e_old, y_old = state.e_old, state.y_old
-    use_refined = state.refined_last_selected
+    carry = dict(
+        aec=state.aec.replace(
+            capture_signal_saturation=capture_signal_saturation),
+        cng=state.cng, residual=state.residual, supp_gain=state.supp_gain,
+        supp_filter=state.supp_filter, e_old=state.e_old, y_old=state.y_old,
+        use_refined=state.refined_last_selected)
     outs, linears = [], []
     for k in range(nb):
-        y0 = y0s[k]
-        sub_out = sub_outs[k]
-        aec = aecs.handle_echo_path_change(config, aec, delay_changes[k],
-                                           gain_changes[k])
+        aec = aecs.handle_echo_path_change(config, carry["aec"],
+                                           delay_changes[k], gain_changes[k])
         supp_gain_state = tree_where(
-            delay_changes[k], set_initial_state(config, supp_gain_state, True),
-            supp_gain_state)
+            delay_changes[k],
+            set_initial_state(config, carry["supp_gain"], True),
+            carry["supp_gain"])
         transition = aec.transition_triggered if k > 0 else transition0
         supp_gain_state = tree_where(
             transition, set_initial_state(config, supp_gain_state, False),
             supp_gain_state)
-
-        e, use_refined = _form_linear_filter_output(config, use_refined,
-                                                    sub_out)
-        YE = afft.padded_fft(torch.stack([y0, e], dim=1),
-                             torch.stack([y_old, e_old], dim=1),
-                             "sqrt_hanning")
-        Y, E = YE[:, 0], YE[:, 1]
-        S2_linear = afft.spectrum(Y - E)
-        Y2 = afft.spectrum(Y)
-        E2 = afft.spectrum(E)
-
-        aec = aecs.update(
-            config, aec, geo, views[k], external_delays[k],
-            external_delay_valids[k],
-            sub_out["refined_frequency_responses"],
-            sub_out["refined_impulse_responses"],
-            sub_out["refined_current_size"], E2, Y2, sub_out,
-            spec_win=spec_wins[k], blocks_win=blocks_wins[k])
-
-        usable = aec.usable_linear_estimate[:, None, None]
-        nearend_spectrum = torch.where(usable, E2, Y2)
-        Y_fft = torch.where(usable, E, Y)
-        cng_state, N_low, N_high, N2 = comfort_noise_compute(
-            config, cng_state, aec.capture_signal_saturation,
-            nearend_spectrum)
-        transparent = aecs.transparent_mode_active(config, aec)
-        residual_state, R2, R2_unbounded = residual_echo_estimate(
-            config, residual_state, aec, S2_linear, Y2,
-            supp_gain_state.dn_nearend_state, transparent,
-            sub_out["refined_current_size"], spec_wins[k])
-
-        nearend_for_gain = torch.where(usable, torch.minimum(E2, Y2), Y2)
-        echo_spectrum = torch.where(usable, S2_linear, R2)
-        supp_gain_state, G, high_gain = suppression_gain_compute(
-            config, supp_gain_state, nearend_for_gain, echo_spectrum, R2,
-            R2_unbounded, N2, analyzer_states[k].narrow_peak_band,
-            aec.saturated_echo, blocks_wins[k][:, 0],
-            config.echo_removal_control.has_clock_drift)
-        supp_filter_state, out = suppression_filter_apply(
-            supp_filter_state, N_low, N_high, G, high_gain, Y_fft,
-            capture_blocks[k])
-        e_old, y_old = e, y0
+        carry = dict(carry, aec=aec, supp_gain=supp_gain_state)
+        carry, out, e = _suppress_block(
+            config, geo, views[k], carry, y0s[k], sub_outs[k], spec_wins[k],
+            blocks_wins[k], capture_blocks[k], external_delays[k],
+            external_delay_valids[k], analyzer_states[k].narrow_peak_band,
+            nree, taps if k == nb - 1 else None)
         outs.append(out)
         linears.append(e)
-
-    new_state = EchoRemoverState(
-        subtractor=sub_state,
-        analyzer=analyzer,
-        aec=aec,
-        cng=cng_state,
-        residual=residual_state,
-        supp_gain=supp_gain_state,
-        supp_filter=supp_filter_state,
-        e_old=e_old,
-        y_old=y_old,
-        gain_change_hangover=hangover.to(_I32),
-        refined_last_selected=use_refined,
-    )
-    return new_state, outs, linears
+    return _new_state(carry, sub_state, analyzer, hangover), outs, linears

@@ -144,7 +144,7 @@ class BufferGeometry:
         if ring_dtype != "float32":
             raise NotImplementedError(
                 f"AEC3 render rings in {ring_dtype} are not ported yet "
-                "(ROADMAP Queue 1 item 11)")
+                "(ROADMAP Queue 1 item 10d)")
         ds = config.delay.down_sampling_factor
         if ds != 4:
             raise NotImplementedError(

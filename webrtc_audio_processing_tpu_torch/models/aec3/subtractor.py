@@ -547,11 +547,19 @@ def _prediction_error(S, y):
     return y - s, s
 
 
-def process(*args, **kwargs):
-    """Subtractor::Process for one block: the per-block path."""
-    raise NotImplementedError(
-        "the per-block subtractor (subtractor.process) is not ported yet "
-        "(ROADMAP Queue 1 item 11); the main path runs process_pair")
+def process(config: EchoCanceller3Config, state: SubtractorState,
+            X_window, X2_refined, X2_coarse, y,
+            analyzer: RenderSignalAnalyzerState, saturated_capture):
+    """Subtractor::Process (subtractor.cc:188-321) for one block, the
+    per-block path's form (the JAX twin's ``process``): X_window (B, P,
+    C_ren, 65) complex with at least max(P_refined, P_coarse) rows, the
+    spectral sums X2_refined and X2_coarse (B, 65) over the active
+    partitions, y (B, C_cap, 64), the analyzer's state after this block's
+    update and saturated_capture (B,). Returns (state, outputs dict)."""
+    return _process_masked(
+        config, state, X_window, X2_refined, X2_coarse, y,
+        narrow_zero_mask(analyzer), poor_signal_excitation(analyzer),
+        saturated_capture)
 
 
 def _process_masked(config: EchoCanceller3Config, state: SubtractorState,

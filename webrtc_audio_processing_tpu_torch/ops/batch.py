@@ -23,16 +23,45 @@ def where(cond: torch.Tensor, a, b):
                        a, b)
 
 
+def children(node):
+    """The (key, child) pairs of a state node in the JAX pytree's order: a
+    dataclass's fields in order, a dict's items by sorted key, a tuple's or
+    list's items by index. None for anything else (a tensor, a plain int,
+    None): a leaf. An injected component's state may be any nest of
+    these."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name))
+                for f in dataclasses.fields(node)]
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (tuple, list)):
+        return list(enumerate(node))
+    return None
+
+
+def rebuild(node, values: dict):
+    """A node of ``node``'s kind with its children replaced by ``values``
+    ({key: child}, every key of ``children(node)``)."""
+    if dataclasses.is_dataclass(node):
+        return type(node)(**values)
+    if isinstance(node, dict):
+        return {k: values[k] for k in node}
+    items = [values[i] for i in range(len(node))]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*items)
+    return type(node)(items)
+
+
 def tree_where(cond: torch.Tensor, a, b):
     """Per-stream select of every leaf of two states with the same
     structure; a leaf the two share (``a is b``) is kept as it is."""
     if a is b:
         return a
-    if dataclasses.is_dataclass(a):
-        return type(a)(**{
-            f.name: tree_where(cond, getattr(a, f.name), getattr(b, f.name))
-            for f in dataclasses.fields(a)
-        })
+    kids = children(a)
+    if kids is not None:
+        other = dict(children(b))
+        return rebuild(a, {k: tree_where(cond, v, other[k])
+                           for k, v in kids})
     return where(cond, a, b)
 
 

@@ -51,17 +51,19 @@ import time
 import torch
 
 from webrtc_audio_processing_tpu_torch import apm
+from webrtc_audio_processing_tpu_torch.ops.batch import children, rebuild
 
 
 def _tensor_leaves(node):
-    """The tensors of a state in field order (None, ints and empty tensors,
-    which hold no storage, skipped)."""
-    if node is None or isinstance(node, int):
-        return
-    if dataclasses.is_dataclass(node):
-        for f in dataclasses.fields(node):
-            yield from _tensor_leaves(getattr(node, f.name))
-    elif node.numel():
+    """The tensors of a state in the JAX pytree's order (dataclass fields,
+    then an injected component's dicts by sorted key, tuples and lists by
+    index); None, ints and empty tensors, which hold no storage,
+    skipped."""
+    kids = children(node)
+    if kids is not None:
+        for _, child in kids:
+            yield from _tensor_leaves(child)
+    elif isinstance(node, torch.Tensor) and node.numel():
         yield node
 
 
@@ -82,15 +84,25 @@ def untie(state) -> None:
     seen = set()
 
     def walk(node):
-        for f in dataclasses.fields(node):
-            value = getattr(node, f.name)
-            if dataclasses.is_dataclass(value):
-                walk(value)
-            elif isinstance(value, torch.Tensor) and value.numel():
-                if _storage(value) in seen:
-                    value = value.clone()
-                    setattr(node, f.name, value)
-                seen.add(_storage(value))
+        kids = children(node)
+        if kids is None:
+            if isinstance(node, torch.Tensor) and node.numel():
+                if _storage(node) in seen:
+                    node = node.clone()
+                seen.add(_storage(node))
+            return node
+        new = {k: walk(v) for k, v in kids}
+        if all(new[k] is v for k, v in kids):
+            return node
+        if dataclasses.is_dataclass(node):
+            for k, v in new.items():
+                setattr(node, k, v)
+            return node
+        if isinstance(node, (dict, list)):
+            for k, v in new.items():
+                node[k] = v
+            return node
+        return rebuild(node, new)  # a tuple: its parent takes the new one
 
     walk(state)
 
@@ -223,7 +235,7 @@ class PairGraph:
 
     def __init__(self, geo: apm.ApmGeometry, state: apm.ApmState):
         dev = _card_of(state)
-        if geo.aec3 is None and geo.aecm is None:
+        if not geo.echo_controller_enabled and geo.aecm is None:
             raise ValueError("the pair step is the echo canceller's "
                              "cadence; this geometry runs none")
         _check_even(state)
