@@ -11,10 +11,13 @@ exits non-zero without a result line:
    with ctypes.
 3. kernels: K1 (biquad cascade, at the HPF's, the AEC3 decimators' and the
    PostFilter's shapes, and at the main path's: its HPF, its QMF branches
-   in the all-pass form, its decimators), K2 (ring span read), K3
+   in the all-pass form, its decimators; and at five sections, the
+   factor-8 decimators' of phase 17), K2 (ring span read; and its bf16
+   form at the main path's shapes, held to its twin bit for bit), K3
    (matched-filter NLMS bank; the specialised form at the path's taps 512,
    sub 16, the general form at taps 256, sub 8), K4 (pre-echo errors;
-   taps 512, acc_rate 4, and the general form at taps 256, acc_rate 8), K5
+   taps 512, acc_rate 4, and the general form at taps 256, acc_rate 8 and
+   at down-sampling by 8's taps 256, acc_rate 4, sub 8, B = 4096), K5
    (window read); K2-K5 also at the main path's B = 4096; and K6 (the
    subtractor pair kernel, at 48 kHz stereo for 2 and 3 blocks with and
    without events, and at 16 kHz mono; both geometries also with render
@@ -50,9 +53,9 @@ exits non-zero without a result line:
    device kernels per frame (the first is the profiler's warm-up).
 5. After each path, its cross-check: two streams rerun on the CPU by the
    same port (plain twins) from the card's state before each checked frame
-   (every 16th or 24th frame from 76 to 195, the untimed run after the
-   delay has locked): relative RMS <= 1e-3 and the same delay on every
-   checked frame. A free-running rerun over the 6 frames from the first
+   (every 24th frame from 76 to 195, the untimed run after the delay has
+   locked): relative RMS <= 1e-3 and the same delay on every checked
+   frame. A free-running rerun over the 4 frames from the first
    checked one is printed beside it: AEC3 turns float noise into
    decisions (the refined filter's leakage choice when the refined and
    coarse error energies tie to a few ulps), so two devices drift apart
@@ -77,7 +80,7 @@ exits non-zero without a result line:
    prints for those batches.
 9. ``api_48k_stereo``: one ``api.AudioProcessing`` on the card with
    ``Config()``'s pipeline (HPF, AEC3, NS, AGC2 with the RNN-VAD) at 48 kHz
-   stereo, fed stream 0 of the main path's scene for 200 frames
+   stereo, fed stream 0 of the main path's scene for 100 frames
    (``process_reverse_stream``, then ``process_stream``). Its outputs must
    be bit-equal on every frame to ``apm.process_stream_pair`` at B = 1 on
    the frames it processed (the same kernels in the same order at the same
@@ -169,11 +172,26 @@ exits non-zero without a result line:
    ``AudioProcessingBuilder(...).set_field_trials(...)`` with phase 14's
    injections, 50 frames, bit-equal to ``apm.process_stream_pair`` at
    B = 1 on the API's own geometry, as phase 9.
+17. ``aec3_variants``: AEC3's other configurations, each 40 frames eager
+   from init_state, then 200 on the pair graph (the last 100 timed):
+   ``default_48k_bf16`` (B = 4096, the render rings in bfloat16, read
+   through K2's bf16 form), ``default_48k_ds8`` (B = 4096, down-sampling
+   by 8: K1's five-section decimators, K3 and K4 at taps 256, sub 8),
+   ``pair_kernel_48k_long_coarse`` (B = 2048, ``pair_kernel_48k`` with a
+   20-partition coarse filter: the plain subtractor runs, K6 launches 0
+   times) and ``aec3_48k_8ch`` (B = 256, 8 capture and 8 render channels
+   with multichannel AEC3). Each: launches as ``expected_aec3_launches``
+   gives, graphed bit-equal to eager, finite, ERLE above 6 dB, no host
+   sync in a replay, the CPU port one frame from the card's state within
+   phase 5's bar; with bf16 rings the ERLE within 1 dB of phase 4's
+   float32 ``default_48k`` and the rings' bytes a stream exactly half. It
+   prints ms and kernels a frame beside the graphed path each varies.
 
 Before the last line the kernel table as JSON (each kernel's
 ``launches`` from the main path, K6's from ``pair_kernel_48k``, AGC1's
-limiter's from ``agc1_hybrid_48k``, and ``launches_by_path`` from every
-path, phases 9-16 included), then the result JSON. The script
+limiter's from ``agc1_hybrid_48k``, K2's bf16 form's from
+``default_48k_bf16``, and ``launches_by_path`` from every path, phases
+9-17 included), then the result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -205,7 +223,7 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
 PROFILED_FRAMES = 3  # the first is the profiler's warm-up
-FREE_FRAMES = 6
+FREE_FRAMES = 4
 
 # K6 against its twin: 2e-3 of each float leaf's scale
 # (tests/test_subtractor_pallas.py:119-124), integer leaves exact.
@@ -251,20 +269,21 @@ class Aec3Path:
     cross: range
 
 
-# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 8 and 5
-# frames keep the script within its 1200 s limit with the phases of the
-# mobile path, the injections and the per-block path. They are spread over
-# frames 76-195, before the profiled and timed frames.
+# The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 5
+# frames a path keep the script within its 1200 s limit with the phases of
+# the mobile path, the injections, the per-block path and AEC3's other
+# configurations. They are spread over frames 76-195, before the profiled
+# and timed frames.
 # ``default_48k`` is the main path: the APM's own default pipeline.
 AEC3_PATHS = (
     Aec3Path("default_48k", "default_48k", 4096, False, (0, 4095),
-             range(76, 196, 16)),
+             range(76, 196, 24)),
     Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
              range(76, 196, 24)),
     Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
              range(76, 196, 24)),
     Aec3Path("pair_kernel_16k_mono", "16k_mono", 4096, True, (0, 4095),
-             range(76, 196, 16)),
+             range(76, 196, 24)),
 )
 
 SLICE_WARMUP = 10
@@ -554,6 +573,11 @@ def kernels_phase(dev):
         "default_48k_decimator": _k1_case(
             dev, main_rng, np.concatenate([aa, nr]), 64, 4096),
     })
+    # The factor-8 decimators (phase 17's default_48k_ds8): five band-pass
+    # sections over B = 4096 lanes, the render's and the capture's alike.
+    others["default_48k_ds8_decimator"] = _k1_case(
+        dev, np.random.default_rng(SEED + 110),
+        render_buffer.decimator_coeffs(8)[0], 64, 4096)
     # The mobile path's HPF (phase 12, aecm_fixed_16k): the 16 kHz table
     # over B = 4096 mono lanes.
     others["aecm_fixed_16k_hpf"] = _k1_case(
@@ -623,6 +647,52 @@ def kernels_phase(dev):
                                         50),
             bound_ms=bound, bound_by=by, shape=f"B={B} LP=200 W={W} F={F}")
 
+    # K2's bf16 form (bf16 rings in, float32 out) at default_48k's shapes:
+    # the bf16 rings' path of phase 17, its chain reads and the per-block
+    # path's windows. The yardstick is torch.gather on the bf16 ring, with
+    # the cast to float32 timed beside it.
+    def k2_bf16_case(W, F, rng, B=4096):
+        ring = torch.from_numpy(rng.standard_normal(
+            (B, 200, F)).astype(np.float32)).to(dev).to(torch.bfloat16)
+        start = torch.from_numpy(
+            rng.integers(0, 167, B).astype(np.int32)).to(dev)
+        got = cuda_span.span_gather_cuda(ring, start, W)
+        want = cuda_span.span_gather_plain(ring, start, W)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError(f"K2's bf16 form differs from its twin: "
+                                 f"{err}")
+        idx = (start.long()[:, None] + torch.arange(W, device=dev))[
+            :, :, None].expand(B, W, F).contiguous()
+
+        def gather():
+            return torch.gather(ring, 1, idx)
+
+        # Bytes: each bf16 value read once, each float32 one written once.
+        bound, by = _bound_ms(B * W * F * (2 + 4))
+        return dict(
+            max_abs_err=err,
+            **_times(lambda: cuda_span.span_gather_cuda(ring, start, W),
+                     200, 50),
+            plain_ms=_event_ms(
+                lambda: cuda_span.span_gather_plain(ring, start, W), 50),
+            library_ms=_event_ms(gather, 200),
+            library_device_ms=_graph_ms(gather, 50),
+            library_cast_ms=_event_ms(lambda: gather().float(), 200),
+            library_cast_device_ms=_graph_ms(lambda: gather().float(), 50),
+            bound_ms=bound, bound_by=by,
+            shape=f"B={B} LP=200 W={W} F={F} bf16")
+
+    k2_bf16 = k2_bf16_case(19, 256, np.random.default_rng(SEED + 111))
+    k2_bf16_others = {
+        "default_48k_blocks": k2_bf16_case(
+            15, 128, np.random.default_rng(SEED + 112)),
+        "per_block_48k_sf": k2_bf16_case(
+            17, 256, np.random.default_rng(SEED + 113)),
+        "per_block_48k_blocks": k2_bf16_case(
+            13, 128, np.random.default_rng(SEED + 114))}
+
     k2 = k2_case(19, 512)
     rows.append(dict(
         name="span_gather", route="cuda",
@@ -642,6 +712,14 @@ def kernels_phase(dev):
             "per_block_48k_blocks": k2_case(
                 13, 128, 4096, np.random.default_rng(SEED + 106))},
         **k2))
+    rows.append(dict(
+        name="span_gather_bf16", route="cuda",
+        source="webrtc_audio_processing_tpu_torch/csrc/span.cu",
+        replaces=("webrtc_audio_processing_tpu/ops/pallas_span.py:47 "
+                  "(its bf16 rings, render_buffer._span's upcast fused)"),
+        library_note=("torch.gather on the bf16 ring with a prebuilt index; "
+                      "library_cast_ms: and .float()"),
+        other_shapes=k2_bf16_others, **k2_bf16))
 
     # K3 at the matched filter's shapes (5 filters of 512 taps, DS = 2448,
     # sub 16: the specialised form), the runtime-sub form beside it, and
@@ -671,6 +749,13 @@ def kernels_phase(dev):
         (other.standard_normal(shape) * scale).astype(np.float32)).to(dev)
         for shape, scale in (((B, 271), 400.0), ((B, 256), 0.01),
                              ((B, 16), 1e-6), ((B, 16), 400.0))), 8)
+    # K4 at down-sampling by 8 (phase 17's default_48k_ds8): taps 256,
+    # the accumulation rate 4 at every factor, sub 8, B = 4096.
+    ds8 = np.random.default_rng(SEED + 115)
+    k4_ds8 = _k4_case(dev, *(torch.from_numpy(
+        (ds8.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+        for shape, scale in (((4096, 263), 400.0), ((4096, 256), 0.01),
+                             ((4096, 8), 1e-6), ((4096, 8), 400.0))), 4)
     rows.append(dict(
         name="pre_echo_inst", route="cuda",
         source="webrtc_audio_processing_tpu_torch/csrc/pre_echo.cu",
@@ -678,7 +763,8 @@ def kernels_phase(dev):
         library_ms=None, library_device_ms=None,
         library_note="none: no PyTorch call computes the chunked errors",
         other_shapes={"taps256_rate8": k4_256, "default_48k": _k4_case(
-            dev, *winner(h0_m, y_m, got_m), 4)}, **k4))
+            dev, *winner(h0_m, y_m, got_m), 4),
+            "default_48k_ds8": k4_ds8}, **k4))
 
     # K5 at the RNN-VAD's shapes: B = 2048 and default_48k's 4096, L = 864,
     # W = 480, with the int64 starts the pitch search gives it
@@ -1039,15 +1125,16 @@ def echo_scene(n_frames, seed, streams, rate=48000, channels=2):
     """The render scene of tests/test_apm_48k_stereo.py per stream (a noise
     burst train with a slow level swing, the same far end on every
     channel; the phases from the stream's own generator), and the capture:
-    its echo through a short path per channel (two paths in stereo) plus
-    -40 dBFS noise. Returns (render, capture), each (len(streams), n,
-    channels) float32 in [-1, 1], n = rate / 100 * n_frames."""
+    its echo through a short path per channel (two paths, alternating over
+    the channels) plus -40 dBFS noise. Returns (render, capture), each
+    (len(streams), n, channels) float32 in [-1, 1], n = rate / 100 *
+    n_frames."""
     n = n_frames * rate // 100
     t = (np.arange(n) / float(rate)).astype(np.float32)
     streams = list(streams)
     render = np.empty((len(streams), n, channels), np.float32)
     capture = np.empty((len(streams), n, channels), np.float32)
-    paths = ((0.4, 0.15, 5), (0.35, 0.12, 9))[:channels]
+    paths = ((0.4, 0.15, 5), (0.35, 0.12, 9))
 
     def one(i):
         rng = np.random.default_rng([seed, streams[i]])
@@ -1055,7 +1142,8 @@ def echo_scene(n_frames, seed, streams, rate=48000, channels=2):
         burst = (np.sin(2 * np.pi * 2.3 * t + p1) > -0.2).astype(np.float32)
         level = 0.15 + 0.85 * np.abs(np.sin(2 * np.pi * 0.4 * t + p2))
         far = rng.standard_normal(n, dtype=np.float32) * (0.2 * burst * level)
-        for ch, (direct, late, lag) in enumerate(paths):
+        for ch in range(channels):  # past 2 channels the paths alternate
+            direct, late, lag = paths[ch % 2]
             render[i, :, ch] = far
             capture[i, :, ch] = direct * far + late * np.roll(far, lag)
         capture[i] += 0.01 * rng.standard_normal((n, channels),
@@ -1102,7 +1190,9 @@ def select_streams(state, idx, device):
     return state[idx].to(device)
 
 
-def _kernel_modules():
+def _kernel_counters():
+    """Each kernel's launch counter: {row name: (wrapper module, counter
+    attribute)}. K2's float32 and bf16 forms count apart."""
     from webrtc_audio_processing_tpu_torch.ops import (
         cuda_agc1_limiter,
         cuda_biquad,
@@ -1113,20 +1203,26 @@ def _kernel_modules():
         cuda_window,
     )
 
-    return {"biquad_cascade": cuda_biquad, "span_gather": cuda_span,
-            "matched_filter_nlms": cuda_matched_filter,
-            "pre_echo_inst": cuda_pre_echo, "take_windows": cuda_window,
-            "subtractor_pair": cuda_subtractor,
-            "agc1_limiter": cuda_agc1_limiter}
+    return {"biquad_cascade": (cuda_biquad, "launches"),
+            "span_gather": (cuda_span, "launches"),
+            "span_gather_bf16": (cuda_span, "launches_bf16"),
+            "matched_filter_nlms": (cuda_matched_filter, "launches"),
+            "pre_echo_inst": (cuda_pre_echo, "launches"),
+            "take_windows": (cuda_window, "launches"),
+            "subtractor_pair": (cuda_subtractor, "launches"),
+            "agc1_limiter": (cuda_agc1_limiter, "launches")}
 
 
 def _reset_counts():
-    for m in _kernel_modules().values():
-        m.launches = 0
+    from webrtc_audio_processing_tpu_torch.ops import cuda_biquad
+
+    for m, attr in _kernel_counters().values():
+        setattr(m, attr, 0)
+    cuda_biquad.launches_by_sections.clear()
 
 
 def _counts():
-    return {k: m.launches for k, m in _kernel_modules().items()}
+    return {k: getattr(m, attr) for k, (m, attr) in _kernel_counters().items()}
 
 
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -1158,7 +1254,8 @@ BENCH_MODES = {"48k_stereo": (48000, 2, 48000), "16k_mono": (16000, 1, 32000)}
 # internal rate capped at 32 kHz, multichannel capture and render off) at
 # 48 kHz stereo: processed mono at 32 kHz in two bands, resampled in and
 # out of the AudioBuffer.
-MODES = {**BENCH_MODES, "default_48k": (48000, 2, 32000)}
+MODES = {**BENCH_MODES, "default_48k": (48000, 2, 32000),
+         "48k_8ch": (48000, 8, 48000)}
 
 
 def aec3_config(cfg_mod, mode="48k_stereo"):
@@ -1204,12 +1301,15 @@ def expected_aec3_launches(geo, n_frames):
     processing only), each QMF direction twice (one cascade a branch:
     capture analysis and synthesis at 32 kHz, render analysis and
     synthesis when the render is processed at 32 kHz), and per frame pair 5
-    render and 5 capture decimations (one launch for both cascades); K2
-    the echo remover's four chain reads per frame (on the per-block path
-    two reads per block: its spectra and its blocks window); K3 and K4 one
-    per capture block; K5 one per frame (AGC2's VAD); K6 one per frame on the
-    pair-kernel path. With AGC1 its limiter once a frame, and with the
-    hybrid manager K1 once a frame for the analytics VAD's pole-zero HPF
+    render and 5 capture decimations (one launch for both cascades: 4
+    sections at down-sampling factor 4, 5 at 8); K2 the echo remover's
+    four chain reads per frame (on the per-block path two reads per block:
+    its spectra and its blocks window), in its bf16 form with bf16 rings;
+    K3 and K4 one per capture block; K5 one per frame (AGC2's VAD); K6 one
+    per frame on the pair-kernel path, unless the coarse filter is longer
+    than the refined one (the plain subtractor runs there). With AGC1 its
+    limiter once a frame, and with the hybrid manager K1 once a frame for
+    the analytics VAD's pole-zero HPF
     and nine more on the frames of its phase 2 (every third, from frame 2:
     five in the pre-filter bank, four in the pitch analysis)."""
     pairs, odd = divmod(n_frames, 2)
@@ -1219,13 +1319,19 @@ def expected_aec3_launches(geo, n_frames):
     per_frame = (geo.hpf_enabled + geo.post_filter_enabled
                  + 2 * qmf_directions)
     vad = n_frames + 9 * (n_frames // 3) if geo.agc1_hybrid else 0
+    spans = 4 * n_frames if geo.aec3.pair_phase else 2 * blocks
+    bf16 = geo.aec3.buffer.ring_dtype == "bfloat16"
+    f = geo.aec3.config.filter
+    k6 = geo.aec3.pair_kernel and (
+        max(f.coarse.length_blocks, f.coarse_initial.length_blocks)
+        <= max(f.refined.length_blocks, f.refined_initial.length_blocks))
     return {"biquad_cascade": per_frame * n_frames + 2 * blocks + vad,
-            "span_gather": (4 * n_frames if geo.aec3.pair_phase
-                            else 2 * blocks),
+            "span_gather": 0 if bf16 else spans,
+            "span_gather_bf16": spans if bf16 else 0,
             "matched_filter_nlms": blocks, "pre_echo_inst": blocks,
             "take_windows": n_frames if geo.config.gain_controller2.enabled
             else 0,
-            "subtractor_pair": n_frames if geo.aec3.pair_kernel else 0,
+            "subtractor_pair": n_frames if k6 else 0,
             "agc1_limiter": (n_frames if geo.config.gain_controller1.enabled
                              else 0)}
 
@@ -1240,9 +1346,9 @@ def _scene(mode, batch):
     channel count share one scene of the most streams any of them runs
     (a stream's signals depend only on its index), made once."""
     rate, channels, _ = MODES[mode]
-    most = max(p.batch for p in AEC3_PATHS
-               if MODES[p.mode][:2] == (rate, channels))
-    render, capture = _scene_streams(rate, channels, max(most, batch))
+    most = max([p.batch for p in AEC3_PATHS
+                if MODES[p.mode][:2] == (rate, channels)] + [batch])
+    render, capture = _scene_streams(rate, channels, most)
     return render[:batch], capture[:batch]
 
 
@@ -1529,11 +1635,11 @@ def bench_twin_phase(dev, smi):
 
 # --------------------------------------------- the API and the engine
 
-# 200 frames (2 s): the API and the direct path run eagerly at B = 1, ~0.5
+# 100 frames (1 s): the API and the direct path run eagerly at B = 1, ~0.5
 # s a frame between them; the delay has locked and the ERLE over the last
-# third is far above the bar by then (25.3 dB on the CPU).
-API_FRAMES = 200
-API_PROFILED = range(145, 148)  # the first is the profiler's warm-up
+# third is far above the bar by then (27.1 dB on the CPU).
+API_FRAMES = 100
+API_PROFILED = range(45, 48)  # the first is the profiler's warm-up
 ENGINE_BATCH = 4096
 ENGINE_FRAMES = 120
 ENGINE_QUEUE = 16
@@ -1911,7 +2017,7 @@ def expected_aecm_launches(geo, n_frames):
     AGC1's limiter once a frame."""
     qmf_directions = 2 * ((geo.capture_processing_rate == 32000)
                           + (geo.render_processing_rate == 32000))
-    want = {k: 0 for k in _kernel_modules()}
+    want = {k: 0 for k in _kernel_counters()}
     want.update(biquad_cascade=(geo.hpf_enabled + 2 * qmf_directions)
                 * n_frames, agc1_limiter=n_frames)
     return want
@@ -3026,6 +3132,210 @@ def builder_api_phase(dev, smi):
     return launches
 
 
+# ------------------------------------------------ AEC3's other configurations
+
+# Phase 17: name -> (mode, streams). Each runs VARIANT_EAGER frames
+# eagerly, then VARIANT_FRAMES on its pair graph, the last 100 timed.
+VARIANTS = {
+    "default_48k_bf16": ("default_48k", 4096),
+    "default_48k_ds8": ("default_48k", 4096),
+    "pair_kernel_48k_long_coarse": ("48k_stereo", 2048),
+    "aec3_48k_8ch": ("48k_8ch", 256),
+}
+# The graphed path each variant's ms and kernels a frame stand beside.
+VARIANT_BESIDE = {"default_48k_bf16": "default_48k",
+                  "default_48k_ds8": "default_48k",
+                  "pair_kernel_48k_long_coarse": "pair_kernel_48k",
+                  "aec3_48k_8ch": "aec3_path"}
+VARIANT_EAGER = 40
+VARIANT_FRAMES = 200
+VARIANT_CPU_FRAME = 30  # rerun on the CPU from the card's state
+LONG_COARSE_BLOCKS = 20
+BF16_ERLE_DB = 1.0  # bf16 rings' ERLE within this of the float32 rings'
+
+
+def variant_geometry(name):
+    """Phase 17's geometries: ``default_48k`` with AEC3's render rings in
+    bfloat16, or with down-sampling by 8; ``pair_kernel_48k`` with a
+    coarse filter of 20 partitions (the refined one has 13), which the
+    plain subtractor runs; the bench's 48 kHz configuration at 8 capture
+    and 8 render channels with multichannel AEC3."""
+    from webrtc_audio_processing_tpu_torch.models.aec3 import (
+        config as a3cfg,
+    )
+
+    mode = VARIANTS[name][0]
+    if name == "default_48k_bf16":
+        return aec3_geometry(mode, False, aec3_ring_dtype="bfloat16")
+    if name == "default_48k_ds8":
+        cfg = a3cfg.EchoCanceller3Config()
+        return aec3_geometry(mode, False, aec3_cfg=cfg.replace(
+            delay=dataclasses.replace(cfg.delay, down_sampling_factor=8)))
+    if name == "pair_kernel_48k_long_coarse":
+        # The bench's stereo path runs the default multichannel config.
+        cfg = a3cfg.create_default_multichannel_config()
+        return aec3_geometry(mode, True, aec3_cfg=cfg.replace(
+            filter=dataclasses.replace(cfg.filter, coarse=dataclasses.replace(
+                cfg.filter.coarse, length_blocks=LONG_COARSE_BLOCKS))))
+    return aec3_geometry(mode, False)
+
+
+def _ring_bytes_per_stream(state):
+    buf = state.aec.buffer
+    return sum(getattr(buf, k)[0].nbytes for k in ("blocks", "sf"))
+
+
+def variants_phase(dev, smi, main_out):
+    """Phase 17: each of ``VARIANTS`` eager over its first 40 frames from
+    init_state (each kernel's launches as ``expected_aec3_launches``
+    gives), then the pair graph from init_state over 200 frames: bit-equal
+    to eager over its 40 frames on the checked streams, finite on every
+    stream, ERLE over the last third above 6 dB, no host sync in a replay;
+    the CPU port one frame from the card's state at frame 30 within phase
+    5's bar with equal delays. Beside them: with bf16 rings, the ERLE
+    within 1 dB of the float32 rings' (phase 4's ``default_48k`` outputs
+    ``main_out`` over the same frames) and the rings' bytes a stream
+    exactly half; at factor 8, K1's five-section launches (two
+    decimations a block); with the long coarse filter, K6 launched 0
+    times. Returns each variant's launches, eager and graphed."""
+    from webrtc_audio_processing_tpu_torch import apm, bench
+    from webrtc_audio_processing_tpu_torch.ops import cuda_biquad
+
+    launches = {}
+    for name, (mode, Bp) in VARIANTS.items():
+        t0 = time.perf_counter()
+        rate, channels, _ = MODES[mode]
+        frame = rate // 100
+        render, capture, ren_dev, cap_dev = _device_scene(
+            mode, Bp, VARIANT_FRAMES, dev)
+        geo = variant_geometry(name)
+        check = [0, Bp - 1]
+        idx = torch.tensor(check, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = apm.init_state(geo, Bp)
+        ring_bytes = _ring_bytes_per_stream(state)
+        outs, delays, snapshot = [], [], None
+        _reset_counts()
+        t_eager = time.perf_counter()
+        for f in range(VARIANT_EAGER):
+            if f == VARIANT_CPU_FRAME:
+                snapshot = select_streams(state, idx, "cpu")
+            sl = slice(f * frame, (f + 1) * frame)
+            state, out, _, stats = apm.process_stream_pair(
+                geo, state, cap_dev[:, sl], ren_dev[:, sl])
+            outs.append(out[idx])
+            delays.append(stats["delay_ms"][idx])
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t_eager) * 1000.0 / VARIANT_EAGER
+        eager_launches = _counts()
+        sections = dict(cuda_biquad.launches_by_sections)
+        want = expected_aec3_launches(geo, VARIANT_EAGER)
+        eager_out = torch.cat(outs, dim=1).cpu().numpy()
+        eager_delay = torch.stack(delays, dim=1).cpu().numpy()
+        del state
+
+        (got_out, got_delay, graph, captured, host_ms, dev_ms, syncs,
+         frames) = _graph_run(geo, apm.init_state(geo, Bp), ren_dev, cap_dev,
+                              VARIANT_FRAMES, idx, frame)
+        last = VARIANT_FRAMES // 2 - 1
+        kernels = bench.device_kernels(
+            [lambda: graph.replay(*frames(last))],
+            [lambda: graph.replay(*frames(last))] * 2) / 2
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        capture_s = graph.capture_seconds
+        del graph
+        differ = [f for f in range(VARIANT_EAGER) if not np.array_equal(
+            got_out[:, f * frame:(f + 1) * frame],
+            eager_out[:, f * frame:(f + 1) * frame])]
+        same_delay = bool(np.array_equal(got_delay[:, :VARIANT_EAGER],
+                                         eager_delay))
+        erle = erle_db(capture[check], render[check], got_out, frame)
+
+        # The CPU port, one frame from the card's state.
+        sl = slice(VARIANT_CPU_FRAME * frame, (VARIANT_CPU_FRAME + 1) * frame)
+        _, cpu_out, _, cpu_stats = apm.process_stream_pair(
+            geo, snapshot, torch.from_numpy(capture[check][:, sl].copy()),
+            torch.from_numpy(render[check][:, sl].copy()))
+        cpu_rel = _rel_rms(eager_out[:, sl], cpu_out.numpy())
+        cpu_delay = bool(np.array_equal(cpu_stats["delay_ms"].numpy(),
+                                        eager_delay[:, VARIANT_CPU_FRAME]))
+
+        extra = {}
+        if name == "default_48k_bf16":
+            n = VARIANT_FRAMES * frame
+            erle32 = erle_db(capture[check], render[check],
+                             main_out[:, :n], frame)
+            bytes32 = _ring_bytes_per_stream(apm.init_state(
+                aec3_geometry("default_48k", False), 1))
+            extra = dict(float32_erle_db=erle32.tolist(),
+                         ring_bytes_per_stream=ring_bytes,
+                         float32_ring_bytes_per_stream=bytes32)
+        elif name == "default_48k_ds8":
+            extra = dict(k1_launches_by_sections=sections,
+                         decimations=2 * apm.block_ordinal(VARIANT_EAGER))
+        ref = PHASES.get(f"{VARIANT_BESIDE[name]}_graphed", {})
+        graphed_launches = {k: v * (VARIANT_FRAMES // 2)
+                            for k, v in captured.items()}
+        phase(name, mode=mode, streams=Bp, eager_frames=VARIANT_EAGER,
+              frames=VARIANT_FRAMES, eager_ms_per_frame=eager_ms,
+              ms_per_frame=host_ms, event_ms_per_frame=dev_ms,
+              realtime_streams=Bp * min(10.0 / host_ms, 1.0),
+              device_kernels_per_frame=kernels,
+              beside=VARIANT_BESIDE[name],
+              beside_graphed_ms_per_frame=ref.get("ms_per_frame"),
+              beside_graphed_kernels_per_frame=ref.get(
+                  "device_kernels_per_frame"),
+              launches=eager_launches, expected_launches=want,
+              launches_per_frame={k: v / VARIANT_EAGER
+                                  for k, v in eager_launches.items()},
+              launches_captured_per_pair=captured,
+              capture_seconds=capture_s,
+              bit_equal_to_eager=not differ and same_delay,
+              frames_differing=len(differ),
+              host_syncs_per_replay=syncs[0],
+              cpu_rel_rms=cpu_rel.tolist(), cpu_delay_ms_equal=cpu_delay,
+              erle_db=erle.tolist(), peak_mem_gb=peak_gb, card=smi,
+              seconds=round(time.perf_counter() - t0, 3), **extra)
+        if eager_launches != want or captured != expected_aec3_launches(
+                geo, 2):
+            raise AssertionError(f"{name} launches {eager_launches} / "
+                                 f"{captured}, expected {want}")
+        if differ or not same_delay:
+            raise AssertionError(f"{name} graphed differs from eager: "
+                                 f"{len(differ)} frames, delays {same_delay}")
+        if syncs[0]:
+            raise AssertionError(f"{name}: a replay synchronized: {syncs[1]}")
+        if not (erle > ERLE_BAR_DB).all():
+            raise AssertionError(f"{name} ERLE {erle} dB not above "
+                                 f"{ERLE_BAR_DB} dB")
+        if not (cpu_rel <= RTOL_RMS).all() or not cpu_delay:
+            raise AssertionError(f"{name} card against CPU: relative RMS "
+                                 f"{cpu_rel}, delays {cpu_delay}")
+        if name == "default_48k_bf16" and (
+                not (np.abs(erle - erle32) <= BF16_ERLE_DB).all()
+                or 2 * ring_bytes != bytes32):
+            raise AssertionError(f"bf16 rings: ERLE {erle} against {erle32} "
+                                 f"dB, {ring_bytes} ring bytes a stream "
+                                 f"against {bytes32}")
+        if name == "default_48k_ds8" and (
+                sections.get(5) != extra["decimations"]
+                or geo.aec3.delay.sub_block_size != 8):
+            raise AssertionError(f"factor 8: K1 launches by sections "
+                                 f"{sections}")
+        if name == "pair_kernel_48k_long_coarse" and (
+                not geo.aec3.pair_kernel
+                or eager_launches["subtractor_pair"]
+                or captured["subtractor_pair"]):
+            raise AssertionError(f"the long coarse filter launched K6: "
+                                 f"{eager_launches} / {captured}")
+        launches[name], launches[f"{name}_graphed"] = (eager_launches,
+                                                       graphed_launches)
+        del ren_dev, cap_dev
+        torch.cuda.empty_cache()
+    return launches
+
+
 def slice_config(cfg_mod):
     return cfg_mod.Config().replace(
         pipeline=cfg_mod.Pipeline(multi_channel_capture=True,
@@ -3217,6 +3527,8 @@ def main(argv=None):
     t11 = time.perf_counter()
     launches["builder_api_48k_stereo"] = builder_api_phase(dev, smi)
     t12 = time.perf_counter()
+    launches.update(variants_phase(dev, smi, eager_out["default_48k"]))
+    t13 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
           engine_default_48k=round(t6 - t5, 3),
@@ -3225,13 +3537,16 @@ def main(argv=None):
           injected_default_48k=round(t10 - t9, 3),
           aec3_per_block_48k=round(t11 - t10, 3),
           builder_api_48k_stereo=round(t12 - t11, 3),
-          total=round(t12 - t_all, 3))
+          aec3_variants=round(t13 - t12, 3),
+          total=round(t13 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
-    # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K1-K5 on
-    # the main path (the default pipeline); every path beside them, the
-    # graphed ones as launches captured per pair (or period) x replays.
+    # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K2's bf16
+    # form on the bf16 rings' path, K1-K5 on the main path (the default
+    # pipeline); every path beside them, the graphed ones as launches
+    # captured per pair (or period) x replays.
     main_paths = {"subtractor_pair": "pair_kernel_48k",
-                  "agc1_limiter": "agc1_hybrid_48k"}
+                  "agc1_limiter": "agc1_hybrid_48k",
+                  "span_gather_bf16": "default_48k_bf16"}
     for r in rows:
         main_path = main_paths.get(r["name"], "default_48k")
         r["launches"] = launches[main_path][r["name"]]

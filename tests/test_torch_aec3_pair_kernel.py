@@ -161,13 +161,61 @@ def test_env_switch_turns_on_only_for_1(monkeypatch, value, on):
 
 
 def test_pair_kernel_rejects_a_coarse_filter_longer_than_the_refined():
-    """K6's window holds the refined filter's partitions; a longer coarse
-    filter has no route on the pair kernel, so the geometry raises rather
-    than run the plain subtractor in its place."""
+    """K6's window holds the refined filter's partitions, so a coarse
+    filter longer than the refined one has no route on K6. The geometry
+    takes the pair kernel all the same (``supported`` is the JAX twin's
+    True), and the echo remover routes those frames to the plain
+    ``subtractor.process_pair``, as the JAX twin does
+    (echo_remover.py:1049-1054 of the JAX package): 16 kHz mono, B = 2,
+    6 frames of the echo scene with a 20-partition coarse filter, K6's
+    marshal never called, the output and every leaf of the state equal to
+    the plain path's, which is the same code."""
     cfg = ac.EchoCanceller3Config()
     cfg = cfg.replace(filter=dataclasses.replace(
         cfg.filter, coarse=ac.CoarseConfiguration(length_blocks=20)))
-    assert not subtractor_kernel.supported(cfg)
-    with pytest.raises(NotImplementedError, match="coarse filter longer"):
-        ec3.Aec3Geometry.create(cfg, 16000, 1, 1, pair_kernel=True)
-    assert ec3.Aec3Geometry.create(cfg, 16000, 1, 1).pair_kernel is False
+    assert subtractor_kernel.supported(cfg)
+    render, capture = chip_smoke.echo_scene(6, chip_smoke.SEED, range(2),
+                                            rate=16000, channels=1)
+    runs = []
+    for pair_kernel in (False, True):
+        geo = chip_smoke.aec3_geometry("16k_mono", pair_kernel, aec3_cfg=cfg)
+        assert geo.aec3.pair_kernel is pair_kernel
+        state = apm.init_state(geo, 2, device="cpu")
+        assert state.aec.remover.subtractor.coarse.H.shape[2] == 20
+        outs = []
+        for f in range(6):
+            sl = slice(f * 160, (f + 1) * 160)
+            state, out, _, _ = apm.process_stream_pair(
+                geo, state, torch.from_numpy(capture[:, sl].copy()),
+                torch.from_numpy(render[:, sl].copy()))
+            outs.append(out.numpy())
+        runs.append((np.stack(outs), apm.state_to_numpy(state)))
+    np.testing.assert_array_equal(runs[1][0], runs[0][0])
+    assert_states_close(runs[1][1], runs[0][1], rtol=0,
+                        exact=tuple(runs[0][1]))
+
+
+def test_long_coarse_filter_never_reaches_the_kernel(monkeypatch):
+    """With the pair kernel on and a coarse filter longer than the refined
+    one, a frame of the pair path does not call K6's marshal (which would
+    launch K6 on the card); with the default filters it does."""
+    calls = []
+    real = subtractor_kernel.process_pair_kernel
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(subtractor_kernel, "process_pair_kernel", counting)
+    render, capture = chip_smoke.echo_scene(1, chip_smoke.SEED, range(1),
+                                            rate=16000, channels=1)
+    base = ac.EchoCanceller3Config()
+    long_coarse = base.replace(filter=dataclasses.replace(
+        base.filter, coarse=ac.CoarseConfiguration(length_blocks=20)))
+    for cfg, want in ((long_coarse, 0), (base, 1)):
+        calls.clear()
+        geo = chip_smoke.aec3_geometry("16k_mono", True, aec3_cfg=cfg)
+        apm.process_stream_pair(geo, apm.init_state(geo, 1, device="cpu"),
+                                torch.from_numpy(capture),
+                                torch.from_numpy(render))
+        assert len(calls) == want

@@ -337,10 +337,24 @@ def test_unported_parts_raise_naming_their_roadmap_item(what):
 
 
 def test_ring_dtype_other_than_float32_raises(monkeypatch):
+    """``APM_AEC3_RING_DTYPE=bfloat16`` stores AEC3's render rings in bf16
+    (it once raised): the API builds them and runs a frame; any dtype but
+    float32 and bfloat16 raises ValueError naming the two."""
     monkeypatch.setenv("APM_AEC3_RING_DTYPE", "bfloat16")
     ap = ap_cpu(cfg_mod.Config().replace(
         echo_canceller=cfg_mod.EchoCanceller(enabled=True)))
-    with pytest.raises(NotImplementedError, match="item 10d"):
+    ap.process_reverse_stream(_noise((160, 1), seed=1), 16000)
+    err, out = ap.process_stream(_noise((160, 1)), 16000)
+    assert err == 0 and out.shape == (160, 1) and np.isfinite(out).all()
+    assert ap._geo.aec3.buffer.ring_dtype == "bfloat16"
+    assert ap._state.aec.buffer.sf.dtype == torch.bfloat16
+
+
+def test_ring_dtype_env_outside_the_two_raises_value_error(monkeypatch):
+    monkeypatch.setenv("APM_AEC3_RING_DTYPE", "float16")
+    ap = ap_cpu(cfg_mod.Config().replace(
+        echo_canceller=cfg_mod.EchoCanceller(enabled=True)))
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
         ap.process_stream(_noise((160, 1)), 16000)
 
 

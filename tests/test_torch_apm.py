@@ -309,24 +309,45 @@ def _aec3_cfg_with(**delay):
     return c.replace(delay=dataclasses.replace(c.delay, **delay))
 
 
-# The AEC3 options still to port, each with the item its raise names.
+# AEC3's options that once raised in the port (ROADMAP Queue 1 items 10d
+# and 11), each with a check of the geometry it builds.
 _UNPORTED_AEC3 = {
     "bf16_rings": (lambda: apm.ApmGeometry.create(
         _aec3_config(), 48000, 2, num_render_channels=2,
-        aec3_ring_dtype="bfloat16"), "10d"),
+        aec3_ring_dtype="bfloat16"),
+        lambda geo: geo.aec3.buffer.ring_dtype == "bfloat16"),
     "down_sampling_by_8": (lambda: apm.ApmGeometry.create(
         _aec3_config(), 48000, 2, num_render_channels=2,
-        aec3_cfg=_aec3_cfg_with(down_sampling_factor=8)), "11"),
+        aec3_cfg=_aec3_cfg_with(down_sampling_factor=8)),
+        lambda geo: geo.aec3.delay.sub_block_size == 8),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED_AEC3))
 def test_unported_aec3_options_raise(name):
-    """AEC3 runs; its unported options raise, naming their item."""
-    make, item = _UNPORTED_AEC3[name]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1 item {item}\)"):
-        make()
+    """AEC3's options that raised before they were ported now build and run
+    one frame at 48 kHz stereo, B = 2: finite output of the frame's
+    shape."""
+    make, check = _UNPORTED_AEC3[name]
+    geo = make()
+    assert check(geo)
+    state = apm.init_state(geo, 2, device="cpu")
+    rng = np.random.default_rng(3)
+    far = (0.1 * rng.standard_normal((2, 480, 2))).astype(np.float32)
+    near = (0.4 * far + 0.01 * rng.standard_normal((2, 480, 2))).astype(
+        np.float32)
+    _, out, _, _ = apm.process_stream_pair(geo, state, torch.from_numpy(near),
+                                           torch.from_numpy(far))
+    assert tuple(out.shape) == (2, 480, 2) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float64"])
+def test_aec3_ring_dtype_other_than_the_two_raises(dtype):
+    """The rings store float32 or bfloat16; any other name raises
+    ValueError naming the two (the JAX package takes any dtype string)."""
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
+        apm.ApmGeometry.create(_aec3_config(), 48000, 2,
+                               num_render_channels=2, aec3_ring_dtype=dtype)
 
 
 def test_pair_kernel_needs_the_pair_phase_path():

@@ -53,8 +53,9 @@ def geometry(m):
 def counting_wrappers(calls):
     """Count the calls of each kernel wrapper while the block runs."""
     saved = []
-    for name, (mod, fn) in ((k, (m, WRAPPERS[k])) for k, m in
-                            chip_smoke._kernel_modules().items()):
+    counters = chip_smoke._kernel_counters()
+    for name, fn in WRAPPERS.items():
+        mod = counters[name][0]
         orig = getattr(mod, fn)
 
         def spy(*args, _orig=orig, _name=name, **kw):
@@ -197,5 +198,7 @@ def test_kernel_wrappers_called_as_chip_smoke_expects(runs):
     the card launches it: K1 9 times a frame (the HPF, four QMF directions
     of two cascades) plus the decimations, no PostFilter, no K6."""
     want = chip_smoke.expected_aec3_launches(runs["geo"], N_FRAMES)
+    # K2's bf16 form shares span_gather's wrapper; float32 rings here.
+    assert want.pop("span_gather_bf16") == 0
     assert runs["calls"] == want
     assert want["biquad_cascade"] == 9 * N_FRAMES + 2 * 30

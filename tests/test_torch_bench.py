@@ -4,13 +4,15 @@ the CPU: its configuration is ``bench.build_step``'s, its batch loop keeps
 ``bench.py``'s keys, and without a card it refuses to run. The timing
 itself runs only on the card (``chip_smoke.py`` phase 8)."""
 
+import dataclasses
+
 import pytest
 import torch
 
 from tests import torch_threads  # noqa: F401  (one thread a worker)
 import chip_smoke
 
-from webrtc_audio_processing_tpu_torch import bench
+from webrtc_audio_processing_tpu_torch import apm, bench
 
 
 @pytest.mark.parametrize("mode", ["48k_stereo", "16k_mono"])
@@ -27,8 +29,26 @@ def test_batch_sizes_and_chunk_are_the_bench_s():
 
 
 def test_bf16_rings_raise_not_implemented(monkeypatch):
+    """``BENCH_RING_DTYPE=bfloat16`` (it once raised) builds the bench's
+    geometry with AEC3's render rings in bf16, whose step runs one frame on
+    the CPU; the rest of the geometry is the float32 one's."""
     monkeypatch.setenv("BENCH_RING_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError):
+    geo = bench.build_geometry("16k_mono", False)
+    assert geo.aec3.buffer.ring_dtype == "bfloat16"
+    monkeypatch.setenv("BENCH_RING_DTYPE", "float32")
+    geo32 = bench.build_geometry("16k_mono", False)
+    assert geo.aec3.config == geo32.aec3.config
+    assert dataclasses.replace(geo.aec3.buffer,
+                               ring_dtype="float32") == geo32.aec3.buffer
+    state = apm.init_state(geo, 2, device="cpu")
+    x = torch.zeros((2, 160, 1))
+    _, out, _, _ = apm.process_stream_pair(geo, state, x + 0.01, x)
+    assert tuple(out.shape) == (2, 160, 1) and bool(torch.isfinite(out).all())
+
+
+def test_bench_ring_dtype_outside_the_two_raises(monkeypatch):
+    monkeypatch.setenv("BENCH_RING_DTYPE", "float16")
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
         bench.build_geometry("48k_stereo", False)
 
 

@@ -120,7 +120,7 @@ def _random_table(rng, K):
 
 
 @pytest.mark.parametrize("T,M", [(1, 63), (3, 4100), (50, 63), (480, 4100)])
-@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5])
 def test_k1_skew_fill_and_drain_match_twin(device, K, T, M):
     """The skewed cascade's fill and drain: T below K, T not a multiple of
     the 32-sample chunk, M not a multiple of the 32-lane block."""
@@ -142,7 +142,7 @@ def _decimator_table():
 
 
 @pytest.mark.parametrize("table", ["decimator", "post_filter", "qmf_1",
-                                   "qmf_2"])
+                                   "qmf_2", "decimator_ds8"])
 def test_k1_new_callers_match_twin_bit_for_bit(device, table):
     """K1 at the AEC3 decimators' shape (4 sections, one signal per stream,
     T = 64), the PostFilter's (4 sections, 2 channels, T = 480) and the
@@ -155,6 +155,8 @@ def test_k1_new_callers_match_twin_bit_for_bit(device, table):
                         480, 4096),
         "qmf_1": (qmf.allpass_rows(qmf.ALLPASS_COEF_1), 160, 4096),
         "qmf_2": (qmf.allpass_rows(qmf.ALLPASS_COEF_2), 160, 8192 + 5),
+        # The factor-8 decimators: five band-pass sections, M = B = 4096.
+        "decimator_ds8": (render_buffer.decimator_coeffs(8)[0], 64, 4096),
     }[table]
     K = coeffs.shape[0]
     rng = np.random.default_rng(11)
@@ -1033,10 +1035,11 @@ def test_k1_at_the_mobile_hpf_shape_matches_twin(device):
 
 
 def _stretch(geo, n, seed, batch, device, graph_cls):
-    """``n`` frames of default_48k's echo scene through a graph of
+    """``n`` frames of the echo scene at the geometry's rate and channels
+    (default_48k's 48 kHz stereo, or a variant's) through a graph of
     ``graph_cls`` from init_state and eagerly from an equal state: the
     per-frame outputs and delays of both, and both final states."""
-    rate, channels, _ = chip_smoke.MODES["default_48k"]
+    rate, channels = geo.capture_input_rate, geo.num_capture_channels
     frame = rate // 100
     render, capture = chip_smoke.echo_scene(n, seed, range(batch), rate,
                                             channels)
@@ -1188,3 +1191,97 @@ def test_builder_api_on_the_card_matches_process_stream_pair(device):
         ap._geo, device, render[0], capture[0], n)
     np.testing.assert_array_equal(np.stack(outs), direct)
     assert delays == direct_delays
+
+
+# ------------------------------------------- AEC3's remaining configurations
+
+
+@pytest.mark.parametrize("F,W", [(256, 19), (128, 15), (256, 17), (6, 3),
+                                 (1664, 19)])
+def test_k2_bf16_matches_twin_bit_for_bit(device, F, W):
+    """K2's bf16 form (bf16 rows in, float32 out) at default_48k's chain
+    reads, the per-block path's, a width off the 8-value vector (the scalar
+    form) and 8 render channels' sf rows; it counts its own launches."""
+    rng = np.random.default_rng(F + W)
+    ring = torch.from_numpy(rng.standard_normal((1024, 200, F)).astype(
+        np.float32)).to(device).to(torch.bfloat16)
+    start = torch.from_numpy(
+        rng.integers(-250, 250, 1024).astype(np.int32)).to(device)
+    f32_before, before = cuda_span.launches, cuda_span.launches_bf16
+    got = cuda_span.span_gather(ring, start, W)
+    want = cuda_span.span_gather_plain(ring, start, W)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert cuda_span.launches_bf16 == before + 1
+    assert cuda_span.launches == f32_before
+
+
+@pytest.mark.parametrize("name", ["default_48k_bf16", "default_48k_ds8",
+                                  "pair_kernel_48k_long_coarse",
+                                  "aec3_48k_8ch"])
+def test_variant_pair_graph_equals_eager(device, name):
+    """Each of phase 17's variants captured as the pair graph, 20 pairs at
+    B = 4 against eager pair steps: outputs, delays and every state leaf
+    bit for bit (the bf16 rings' bits included)."""
+    geo = chip_smoke.variant_geometry(name)
+    got, want, gs, es = _stretch(geo, 40, 8, 4, device, step_graph.PairGraph)
+    _assert_same(got, want, gs, es)
+
+
+def test_per_block_pair_graph_equals_eager_with_bf16_rings(device):
+    """AEC3's per-block path (K2's bf16 form twice a block) with bf16
+    rings, graphed against eager, 20 pairs at B = 4, bit for bit."""
+    geo = chip_smoke.aec3_geometry("default_48k", False, pair_phase=False,
+                                   aec3_ring_dtype="bfloat16")
+    before = cuda_span.launches_bf16
+    got, want, gs, es = _stretch(geo, 40, 8, 4, device, step_graph.PairGraph)
+    _assert_same(got, want, gs, es)
+    assert cuda_span.launches_bf16 > before
+    assert gs.aec.buffer.sf.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["default_48k_bf16", "default_48k_ds8",
+                                  "aec3_48k_8ch"])
+def test_variant_step_on_the_card_equals_the_cpu(device, name):
+    """One step of a variant from the same state after 30 frames, card and
+    CPU: relative RMS <= 1e-3 per stream and equal delays."""
+    geo = chip_smoke.variant_geometry(name)
+    rate, channels = geo.capture_input_rate, geo.num_capture_channels
+    frame = rate // 100
+    render, capture = chip_smoke.echo_scene(31, 9, range(3), rate, channels)
+    ren, cap = torch.from_numpy(render), torch.from_numpy(capture)
+    state = apm.init_state(geo, 3, device)
+    for f in range(30):
+        sl = slice(f * frame, (f + 1) * frame)
+        state, *_ = apm.process_stream_pair(geo, state, cap[:, sl].to(device),
+                                            ren[:, sl].to(device))
+    cpu = chip_smoke.select_streams(state, torch.arange(3, device=device),
+                                    "cpu")
+    sl = slice(30 * frame, 31 * frame)
+    _, y_g, _, st_g = apm.process_stream_pair(geo, state, cap[:, sl].to(
+        device), ren[:, sl].to(device))
+    _, y_c, _, st_c = apm.process_stream_pair(geo, cpu, cap[:, sl],
+                                              ren[:, sl])
+    rel = chip_smoke._rel_rms(y_g.cpu().numpy(), y_c.numpy())
+    assert (rel <= 1e-3).all(), rel
+    assert torch.equal(st_g["delay_ms"].cpu(), st_c["delay_ms"])
+
+
+def test_long_coarse_filter_launches_no_k6(device):
+    """The pair kernel with a coarse filter longer than the refined one:
+    the frames run the plain subtractor, K6 launches 0 times, and the
+    rest of the path launches as ``expected_aec3_launches`` gives."""
+    geo = chip_smoke.variant_geometry("pair_kernel_48k_long_coarse")
+    assert geo.aec3.pair_kernel
+    render, capture = chip_smoke.echo_scene(4, 9, range(4), 48000, 2)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    state = apm.init_state(geo, 4, device)
+    chip_smoke._reset_counts()
+    for f in range(4):
+        sl = slice(f * 480, (f + 1) * 480)
+        state, out, _, _ = apm.process_stream_pair(geo, state, cap[:, sl],
+                                                   ren[:, sl])
+    counts = chip_smoke._counts()
+    assert counts["subtractor_pair"] == 0
+    assert counts == chip_smoke.expected_aec3_launches(geo, 4)

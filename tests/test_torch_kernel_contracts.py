@@ -4,10 +4,12 @@
   FFMA (a single rounding). Its plain twin rounds the double sum of the
   exact product and c to float, which rounds twice. The two agree on every
   multiply-add the twin does on the port's tables (HPF at 16, 32 and
-  48 kHz, PostFilter, AEC3 decimator, and the QMF's all-pass rows in
-  the all-pass form) over noise, so kernel and twin can agree bit for
-  bit. The reference here is an exact fma in numpy: the double sum made
-  exact by TwoSum and rounded to odd, then to float.
+  48 kHz, PostFilter, AEC3 decimators at factors 4 and 8, and the QMF's
+  all-pass rows in the all-pass form) over noise, so kernel and twin can
+  agree bit for bit. At five sections (the factor-8 decimators' band-pass
+  cascade) the twin also equals the JAX package's scan bit for bit, and a
+  sixth section raises. The reference here is an exact fma in numpy: the
+  double sum made exact by TwoSum and rounded to odd, then to float.
 - K5's twin gives ``lax.dynamic_slice``'s windows for int32 and int64
   starts alike, negative and past the end, at every start residue mod 4
   (the kernel's 16-byte lines).
@@ -40,7 +42,11 @@ import pytest
 import torch
 
 from tests import torch_threads  # noqa: F401  (one thread a worker)
-from webrtc_audio_processing_tpu.ops import pallas_mf, pallas_pre_echo
+from webrtc_audio_processing_tpu.ops import (
+    pallas_biquad,
+    pallas_mf,
+    pallas_pre_echo,
+)
 
 from webrtc_audio_processing_tpu_torch.models import post_filter
 from webrtc_audio_processing_tpu_torch.models.aec3 import render_buffer
@@ -91,6 +97,7 @@ def _tables():
     tables["post_filter"] = biquad.pack_coeffs(post_filter.COEFFS_B_48K,
                                                post_filter.COEFFS_A_48K)
     tables["decimator"] = np.concatenate([aa, nr])
+    tables["decimator_ds8"] = render_buffer.decimator_coeffs(8)[0]
     tables["qmf_1"] = qmf.allpass_rows(qmf.ALLPASS_COEF_1)
     tables["qmf_2"] = qmf.allpass_rows(qmf.ALLPASS_COEF_2)
     # The analytics VAD's IIRs on K1 (models/vad/analytics_vad.py).
@@ -138,6 +145,33 @@ def test_twin_fma_is_single_rounding_on_every_table(table, monkeypatch):
     per_section = 1 if allpass else 2
     assert checked[0] >= 480 * 64 * K * per_section
     assert differ[0] == 0, f"{differ[0]} of {checked[0]} multiply-adds"
+
+
+def test_k1_twin_matches_jax_scan_at_five_sections():
+    """K1's twin at K = 5 on the factor-8 decimators' band-pass table
+    (b0 and b2 not 1, b1 = 0: no select folds) against the jitted JAX
+    cascade (``make_cascade``'s scan as XLA:CPU contracts it), over 64
+    samples from a random state, bit for bit; K = 6 raises, naming the
+    limit."""
+    aa = render_buffer.decimator_coeffs(8)[0]
+    b, a = aa[:, :3], aa[:, 3:]
+    K, M, T = 5, 6, 64
+    rng = np.random.default_rng(58)
+    x = (rng.standard_normal((M, T)) * 3000).astype(np.float32)
+    st = (rng.standard_normal((M, K, 4)) * 100).astype(np.float32)
+    want_st, want_y = jax.jit(jax.vmap(pallas_biquad.make_cascade(b, a)))(
+        st, x)
+    got_st, got_y = cuda_biquad.cascade(
+        torch.from_numpy(aa),
+        torch.from_numpy(st.transpose(1, 2, 0).reshape(4 * K, M).copy()),
+        torch.from_numpy(x.T.copy()))
+    np.testing.assert_array_equal(got_y.numpy().T, np.asarray(want_y))
+    np.testing.assert_array_equal(
+        got_st.numpy().reshape(K, 4, M).transpose(2, 0, 1),
+        np.asarray(want_st))
+    six = torch.from_numpy(np.concatenate([aa, aa[:1]]))
+    with pytest.raises(ValueError, match=r"1\.\.5 sections"):
+        cuda_biquad.cascade(six, torch.zeros(24, M), torch.zeros(T, M))
 
 
 def _k5_starts(L, W):

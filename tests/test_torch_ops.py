@@ -223,8 +223,9 @@ def test_kernel_wrappers_reject_other_devices():
 
 
 def test_k1_checks_shapes():
+    # Five sections run (the factor-8 decimators); a sixth raises.
     with pytest.raises(ValueError):
-        cuda_biquad.cascade(torch.zeros(5, 5), torch.zeros(20, 4),
+        cuda_biquad.cascade(torch.zeros(6, 5), torch.zeros(24, 4),
                             torch.zeros(480, 4))
     with pytest.raises(ValueError):
         cuda_biquad.cascade(torch.zeros(3, 5), torch.zeros(8, 4),

@@ -23,7 +23,10 @@ recommendation when it made one, else AGC1's. In mobile mode
 ``set_stream_delay_ms`` on every capture step.
 ``AEC3_PAIR_KERNEL=1`` puts the subtractor on K6 and ``AEC3_PAIR_PHASE=0``
 runs AEC3's per-block path, as the JAX package's switches do
-(``echo_canceller3.pair_kernel_from_env``, ``pair_phase_from_env``).
+(``echo_canceller3.pair_kernel_from_env``, ``pair_phase_from_env``);
+``APM_AEC3_RING_DTYPE=bfloat16`` stores AEC3's render rings in bf16 (the
+JAX package's serving mode; ``float32`` by default, any other value
+raises ValueError).
 Injected components (``builder.Injections``, usually through
 ``builder.AudioProcessingBuilder``) run inside the steps; an injected echo
 control's metrics reach ``get_statistics`` as AEC3's do.
@@ -273,11 +276,6 @@ class AudioProcessing:
                    render_channels, capture_out_rate)
         if self._geo is not None and self._geo_key == geo_key:
             return
-        ring_dtype = os.environ.get("APM_AEC3_RING_DTYPE", "float32")
-        if ring_dtype != "float32":
-            raise NotImplementedError(
-                f"APM_AEC3_RING_DTYPE={ring_dtype}: the AEC3 render rings "
-                f"run in float32 only (ROADMAP Queue 1 item 10d)")
         self._geo_key = geo_key
         # A format-driven (re)initialization recreates the render transfer
         # queues (InitializeLocked -> AllocateRenderQueue,
@@ -295,6 +293,7 @@ class AudioProcessing:
             injections=self._injections,
             debug_taps=self._data_dump_dir is not None,
             aec3_stereo_content=self._aec3_stereo_active,
+            aec3_ring_dtype=os.environ.get("APM_AEC3_RING_DTYPE", "float32"),
             aec3_pair_kernel=ec3.pair_kernel_from_env(),
             aec3_pair_phase=ec3.pair_phase_from_env(),
         )

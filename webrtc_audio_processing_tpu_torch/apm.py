@@ -82,6 +82,7 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
     config as aec3_config,
     echo_canceller3 as ec3,
     multi_channel_content_detector as mccd,
+    render_buffer as aec3_render_buffer,
 )
 from webrtc_audio_processing_tpu_torch.models.aecm import (
     echo_control_mobile as ecm,
@@ -162,6 +163,7 @@ class ApmGeometry:
         aec3_pair_kernel: bool = False,
         aec3_pair_phase: bool = True,
     ) -> "ApmGeometry":
+        aec3_render_buffer.ring_torch_dtype(aec3_ring_dtype)  # or raise
         capture_output_rate = capture_output_rate or capture_input_rate
         render_input_rate = render_input_rate or capture_input_rate
         render_output_rate = render_output_rate or render_input_rate
@@ -1017,6 +1019,15 @@ def tree_to_state(template, src, path: str = "state"):
     if arr.shape[1:] != tuple(template.shape[1:]):
         raise ValueError(f"{path}: shape {arr.shape} does not match the "
                          f"port's (B,) + {tuple(template.shape[1:])}")
+    if arr.dtype.name == "bfloat16" or template.dtype == torch.bfloat16:
+        # numpy has no bf16: JAX hands over ml_dtypes.bfloat16 arrays (or
+        # their uint16 bit patterns, as state_to_numpy gives them), which
+        # torch.from_numpy refuses; the 16 bits go through int16.
+        if arr.dtype.itemsize != 2 or template.dtype != torch.bfloat16:
+            raise ValueError(f"{path}: {arr.dtype} leaf for a "
+                             f"{template.dtype} one")
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True)).to(template.dtype)
 
 
@@ -1048,7 +1059,10 @@ def state_to_numpy(state) -> dict:
     (``jax.tree_util.keystr`` without its leading dot: ``a.b`` for fields,
     ``a['k']`` for an injected component's dict keys, ``a[0]`` for its
     sequences), and AEC3's block ordinal is the 0-d leaf
-    ``aec3_block_ordinal`` (the frame counter is not a leaf)."""
+    ``aec3_block_ordinal`` (the frame counter is not a leaf). numpy has no
+    bfloat16: a bf16 leaf (AEC3's rings with ``aec3_ring_dtype="bfloat16"``)
+    is given as its uint16 bit patterns, which ``tree_to_state`` takes
+    back."""
     out = {}
 
     def walk(node, path):
@@ -1061,6 +1075,9 @@ def state_to_numpy(state) -> dict:
         elif isinstance(node, (dict, tuple, list)):
             for k, v in batch_ops.children(node):
                 walk(v, f"{path}[{k!r}]")
+        elif node.dtype == torch.bfloat16:
+            out[path] = (node.detach().cpu().view(torch.int16).numpy()
+                         .view(np.uint16).copy())
         else:
             out[path] = node.detach().cpu().numpy().copy()
 

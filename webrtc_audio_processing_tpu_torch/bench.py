@@ -20,7 +20,8 @@ bench times one jitted ``lax.scan`` over the chunk, a chunk here is 25
 replays of the pair step captured as one CUDA graph
 (``step_graph.PairGraph``). Environment: ``BENCH_MODE`` (``both``,
 ``48k_stereo`` or ``16k_mono``), ``BENCH_TIME_BUDGET_S`` (900),
-``BENCH_RING_DTYPE`` (only ``float32`` is ported) and ``AEC3_PAIR_KERNEL``
+``BENCH_RING_DTYPE`` (``float32``, or ``bfloat16`` for AEC3's render
+rings in bf16) and ``AEC3_PAIR_KERNEL``
 (``1``: the subtractor on K6; the reference's plain one otherwise). Only an
 out-of-memory error at a batch size is caught; any other error ends the run
 with a non-zero exit and no result line.

@@ -60,21 +60,23 @@
 
 namespace {
 
-constexpr int kMaxSections = 4;
+constexpr int kMaxSections = 5;
 constexpr int kLanes = 32;  // one warp per block
 constexpr int kChunk = 32;  // samples per staged chunk
 
 // Which sections have b0 == 1 (bit 2k) and b2 == 1 (bit 2k + 1). The port's
 // tables have unit sections after a general first one: the HPFs (K = 3)
-// and the decimators' (K = 4, last section general) 0x3C, the PostFilter's
-// 0xFC. A kernel specialised on its table's mask carries no select per
-// operation, as XLA folds x * 1.0 away at compile time; kRuntime decides
-// per section at run time, for any other table.
+// and the factor-4 decimators' (K = 4, last section general) 0x3C, the
+// PostFilter's 0xFC; the factor-8 decimators' five band-pass sections
+// have none (K = 5, mask 0). A kernel specialised on its table's mask
+// carries no select per operation, as XLA folds x * 1.0 away at compile
+// time; kRuntime decides per section at run time, for any other table.
 // kAllpass: the caller's rows are first-order all-pass sections.
 constexpr int kRuntime = -1;
 constexpr int kAllpass = -2;
 constexpr int kUnit123 = 0xFC;
 constexpr int kUnit12 = 0x3C;
+constexpr int kUnitNone = 0;
 
 struct Section {
   float b0, b1, b2, na1, na2;  // coefficients, a1 and a2 negated
@@ -225,6 +227,8 @@ __global__ void __launch_bounds__(kLanes)
     filter_lane<K, kUnit12>(sec, stage, x, y, T, M, m, lane);
   } else if (K == 4 && units == kUnit123) {
     filter_lane<K, kUnit123>(sec, stage, x, y, T, M, m, lane);
+  } else if (K == 5 && units == kUnitNone) {
+    filter_lane<K, kUnitNone>(sec, stage, x, y, T, M, m, lane);
   } else {
     filter_lane<K, kRuntime>(sec, stage, x, y, T, M, m, lane);
   }
@@ -276,6 +280,7 @@ extern "C" int biquad_cascade_f32(const void* x, void* y, const void* state_in,
     case 2: launch<2>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
     case 3: launch<3>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
     case 4: launch<4>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
+    case 5: launch<5>(xf, yf, si, so, cf, T, M, allpass != 0, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -189,6 +189,7 @@ def _init_aggregator(geo: DelayGeometry, batch: int, device):
 
 def init_state(geo: DelayGeometry, config: EchoCanceller3Config,
                num_channels: int, batch: int, device) -> DelayEstimatorState:
+    aa_sections, nr_sections = rb.decimator_sections(geo.down_sampling_factor)
     return DelayEstimatorState(
         matched_filter=_init_matched_filter(geo, batch, device),
         aggregator=_init_aggregator(geo, batch, device),
@@ -198,8 +199,10 @@ def init_state(geo: DelayGeometry, config: EchoCanceller3Config,
             level=_zeros(batch, _I32, device),
         ),
         capture_mixer=rb.init_mixer(batch, num_channels, device),
-        capture_decimator_aa=biquad.init_state(3, batch, None, device),
-        capture_decimator_nr=biquad.init_state(1, batch, None, device),
+        capture_decimator_aa=biquad.init_state(aa_sections, batch, None,
+                                               device),
+        capture_decimator_nr=biquad.init_state(nr_sections, batch, None,
+                                               device),
         old_lag=_zeros(batch, _I32, device),
         old_lag_valid=_zeros(batch, torch.bool, device),
         consistent_estimate_counter=_zeros(batch, _I32, device),

@@ -12,7 +12,9 @@ Two capture paths, as in the JAX twin. The pair-phase path
 (``pair_phase=True``, the default) runs the delay stack for every block of
 the frame first, then the echo remover's three-phase pair form; its
 subtractor is the plain ``subtractor.process_pair`` by default, or the pair
-kernel K6 with ``pair_kernel=True`` (see
+kernel K6 with ``pair_kernel=True`` where the coarse filter has no more
+partitions than the refined one; with a longer coarse filter the pair path
+runs the plain subtractor, as the JAX twin does (see
 ``echo_remover.process_capture_pair``).
 The per-block path (``pair_phase=False``, the JAX package's
 ``AEC3_PAIR_PHASE=0``) runs each block through the whole of
@@ -43,7 +45,6 @@ from webrtc_audio_processing_tpu_torch.models.aec3 import (
     echo_remover as er,
     multi_channel_content_detector as mccd,
     render_buffer as rb,
-    subtractor_kernel,
 )
 from webrtc_audio_processing_tpu_torch.models.aec3.config import (
     EchoCanceller3Config,
@@ -52,8 +53,6 @@ from webrtc_audio_processing_tpu_torch.ops.batch import tree_where
 
 BLOCK_SIZE = 64
 FRAME_SIZE = 160
-
-_ITEM_11 = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 
 def pair_kernel_from_env() -> bool:
@@ -102,12 +101,6 @@ class Aec3Geometry:
             # the plain subtractor on the card in its place.
             raise ValueError("the pair kernel K6 computes the pair-phase "
                              "form only; pair_kernel needs pair_phase")
-        if pair_kernel and not subtractor_kernel.supported(config):
-            # The JAX twin runs the XLA subtractor there instead
-            # (echo_remover.py:1051-1056); the port has no second route.
-            raise NotImplementedError(
-                f"the pair kernel with a coarse filter longer than the "
-                f"refined one {_ITEM_11}")
         return Aec3Geometry(
             config=config,
             sample_rate_hz=sample_rate_hz,

@@ -857,9 +857,11 @@ def process_capture_pair(config: EchoCanceller3Config,
     B) the subtractor over all blocks: ``subtractor.process_pair`` on the
        per-block FFT windows, or, with ``pair_kernel``, the pair kernel K6
        on the sf chain and the blocks' offsets into it
-       (``subtractor_kernel.process_pair_kernel``). The geometry allows
-       ``pair_kernel`` only where the coarse filter is no longer than the
-       refined one (``subtractor_kernel.supported``);
+       (``subtractor_kernel.process_pair_kernel``). K6's window holds the
+       refined filter's partitions, so where the coarse filter has more,
+       the pair path runs ``subtractor.process_pair`` with its X windows
+       even with ``pair_kernel``, as the JAX twin does
+       (echo_remover.py:1049-1054 of the JAX package);
     C) per block: AEC state, comfort noise, residual echo (or the injected
        ``nree``'s), suppression; ``taps`` takes the last block's.
 
@@ -874,6 +876,8 @@ def process_capture_pair(config: EchoCanceller3Config,
     L = geo.num_blocks
     y0s = [cb[:, 0].transpose(1, 2) for cb in capture_blocks]  # (B, C, 64)
     p_ref_max, spec_win_len, W_b = _window_bounds(config, state, geo)
+    kernel_mode = pair_kernel and (state.subtractor.coarse.H.shape[2]
+                                   <= state.subtractor.refined.H.shape[2])
 
     # Phase A1: each block's windows are contiguous spans whose starts move
     # by -1 (sf) or +1 (blocks) per block except across one delay jump, so
@@ -907,7 +911,7 @@ def process_capture_pair(config: EchoCanceller3Config,
         sf_offs.append(chain_offset(sf_starts[k], sf_a, sf_b, W_chain))
         rows = rb.window_slice(sf_chain, sf_offs[k], spec_win_len)
         spec_wins.append(rb.sf_spectrum(geo, rows))
-        if not pair_kernel:
+        if not kernel_mode:
             X_windows.append(rb.sf_fft(geo, rows[:, :p_ref_max]))
         brows = rb.window_slice(
             b_chain, chain_offset(b_starts[k], b_a, b_b, W_bchain), W_b)
@@ -932,7 +936,7 @@ def process_capture_pair(config: EchoCanceller3Config,
     transitions = [transition0] + [torch.zeros_like(transition0)] * (nb - 1)
     masks = [subt.narrow_zero_mask(a) for a in analyzer_states]
     poors = [subt.poor_signal_excitation(a) for a in analyzer_states]
-    if pair_kernel:
+    if kernel_mode:
         sub_state, sub_outs = subtractor_kernel.process_pair_kernel(
             config, geo, state.subtractor, sf_chain, sf_offs, y0s, masks,
             poors, delay_changes, transitions, capture_signal_saturation)

@@ -20,7 +20,14 @@ it leaf by leaf and K2 keeps its contract:
   ``[re | im | spectrum | 0]``;
 * the rows of one frame pair are staged in ``sf_pending`` and
   ``blocks_pending`` and written into the rings at the start of the next
-  pair (``flush_sf_pending``); readers overlay the staged rows.
+  pair (``flush_sf_pending``); readers overlay the staged rows;
+* with ``ring_dtype="bfloat16"`` the ``blocks`` and ``sf`` rings store
+  bf16 (the JAX package's serving mode: half the per-stream ring bytes).
+  The staging rows and the low-rate ring stay float32; a flush rounds the
+  staged rows to nearest even, and every read comes back as float32 (K2's
+  bf16 form upcasts), with the staged rows overlaid in float32, so a row
+  still staged reads back unrounded and a flushed one rounded, in the JAX
+  package's order.
 
 The rings are updated in place: a state passed to ``insert`` or
 ``flush_sf_pending`` is changed. Everything else returns new tensors.
@@ -58,6 +65,10 @@ _LOW_PASS_DS4_A = np.array(
     [[-1.5183195, 0.633165865],
      [-1.49784254, 0.853586692],
      [-1.49791282, 0.969572384]], np.float32)
+_BAND_PASS_DS8_B = np.tile(
+    np.array([[0.103304783, 0.0, -0.103304783]], np.float32), (5, 1))
+_BAND_PASS_DS8_A = np.tile(
+    np.array([[-1.520363, 0.793390435]], np.float32), (5, 1))
 _HIGH_PASS_B = np.array([[0.757076375, -1.51415275, 0.757076375]], np.float32)
 _HIGH_PASS_A = np.array([[-1.45424359, 0.574061915]], np.float32)
 
@@ -95,32 +106,61 @@ def aligned_rows(W: int) -> int:
     return ((W + 7 + 7) // 8) * 8
 
 
-def decimator_coeffs():
-    """The factor-4 decimator's anti-aliasing and noise-reduction cascades
-    as packed (K, 5) coefficient arrays."""
+def decimator_coeffs(down_sampling_factor: int = 4):
+    """The decimator's anti-aliasing and noise-reduction cascades as packed
+    (K, 5) coefficient arrays (decimator.cc:22-52, :58-71): at factor 4 the
+    three-section low-pass and the one-section high-pass, at factor 8 the
+    five-section band-pass and no high-pass ((0, 5))."""
+    if down_sampling_factor == 8:
+        return (biquad.pack_coeffs(_BAND_PASS_DS8_B, _BAND_PASS_DS8_A),
+                np.zeros((0, 5), np.float32))
     aa = biquad.pack_coeffs(_LOW_PASS_DS4_B, _LOW_PASS_DS4_A)
     return aa, biquad.pack_coeffs(_HIGH_PASS_B, _HIGH_PASS_A)
 
 
+def decimator_sections(down_sampling_factor: int) -> tuple[int, int]:
+    """The (anti-aliasing, noise-reduction) section counts of a factor's
+    decimator state."""
+    return tuple(c.shape[0] for c in decimator_coeffs(down_sampling_factor))
+
+
 @functools.lru_cache(maxsize=None)
-def _decimator_tensor(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.concatenate(decimator_coeffs())).to(device)
+def _decimator_tensor(down_sampling_factor: int,
+                      device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.concatenate(
+        decimator_coeffs(down_sampling_factor))).to(device)
 
 
 def decimate(down_sampling_factor: int, aa: biquad.BiquadCascadeState,
              nr: biquad.BiquadCascadeState, x: torch.Tensor):
     """Decimator::Decimate (decimator.cc:74-91) on x (B, 64): the
-    anti-aliasing cascade, then the noise-reduction high-pass, then every
-    ``factor``-th sample. Both cascades run as one 4-section launch of K1:
-    the sections run in sequence per sample either way, so the output is
-    the same. Returns (aa, nr, (B, 64 // factor))."""
+    anti-aliasing cascade, then the noise-reduction high-pass (factor 4
+    only), then every ``factor``-th sample. Both cascades run as one launch
+    of K1, 4 sections at factor 4 and 5 at factor 8: the sections run in
+    sequence per sample either way, so the output is the same. Returns
+    (aa, nr, (B, 64 // factor))."""
     k_aa = aa.x.shape[1]
     st = biquad.BiquadCascadeState(x=torch.cat([aa.x, nr.x], dim=1),
                                    y=torch.cat([aa.y, nr.y], dim=1))
-    st, y = biquad.process(_decimator_tensor(x.device), st, x)
+    st, y = biquad.process(_decimator_tensor(down_sampling_factor, x.device),
+                           st, x)
     aa = biquad.BiquadCascadeState(x=st.x[:, :k_aa], y=st.y[:, :k_aa])
     nr = biquad.BiquadCascadeState(x=st.x[:, k_aa:], y=st.y[:, k_aa:])
     return aa, nr, y[:, ::down_sampling_factor]
+
+
+# The rings' storage dtypes by name (``ring_dtype``).
+RING_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def ring_torch_dtype(name: str) -> torch.dtype:
+    """The ring dtype ``name`` as a torch dtype. The JAX package takes any
+    dtype string; the port takes the two it serves and raises ValueError
+    for any other."""
+    if name not in RING_DTYPES:
+        raise ValueError(f"AEC3 ring dtype {name!r}: the rings store "
+                         f"{' or '.join(map(repr, RING_DTYPES))}")
+    return RING_DTYPES[name]
 
 
 @dataclass(frozen=True)
@@ -135,21 +175,14 @@ class BufferGeometry:
     ds_size: int  # low-rate ring length (samples)
     buffer_headroom: int  # refined filter length
     pad: int = 0  # mirror rows: rows [L, L + pad) copy rows [0, pad)
-    ring_dtype: str = "float32"
+    ring_dtype: str = "float32"  # the blocks and sf rings' storage
 
     @staticmethod
     def create(config: EchoCanceller3Config, sample_rate_hz: int,
                num_channels: int,
                ring_dtype: str = "float32") -> "BufferGeometry":
-        if ring_dtype != "float32":
-            raise NotImplementedError(
-                f"AEC3 render rings in {ring_dtype} are not ported yet "
-                "(ROADMAP Queue 1 item 10d)")
+        ring_torch_dtype(ring_dtype)
         ds = config.delay.down_sampling_factor
-        if ds != 4:
-            raise NotImplementedError(
-                f"AEC3 down-sampling by {ds} is not ported yet (ROADMAP "
-                "Queue 1 item 11)")
         num_blocks = get_render_delay_buffer_size(
             ds, config.delay.num_filters, config.filter.refined.length_blocks)
         # The widest contiguous window any reader takes (the JAX
@@ -180,6 +213,10 @@ class BufferGeometry:
             ring_dtype=ring_dtype,
             pad=min(lp - num_blocks, num_blocks),
         )
+
+    @property
+    def ring_torch_dtype(self) -> torch.dtype:
+        return RING_DTYPES[self.ring_dtype]
 
     @property
     def max_delay(self) -> int:
@@ -301,10 +338,12 @@ def init_state(geo: BufferGeometry, config: EchoCanceller3Config,
                batch: int, device) -> RenderDelayBufferState:
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    ring = dict(dtype=geo.ring_torch_dtype, device=device)
     b = batch
+    aa_sections, nr_sections = decimator_sections(geo.down_sampling_factor)
     state = RenderDelayBufferState(
-        blocks=torch.zeros((b, geo.rows, geo.blocks_row_fp), **f32),
-        sf=torch.zeros((b, geo.rows, geo.sf_row_fp), **f32),
+        blocks=torch.zeros((b, geo.rows, geo.blocks_row_fp), **ring),
+        sf=torch.zeros((b, geo.rows, geo.sf_row_fp), **ring),
         sf_pending=torch.zeros((b, PAIR_BLOCKS, geo.sf_row_fp), **f32),
         blocks_pending=torch.zeros((b, PAIR_BLOCKS, geo.blocks_row_fp),
                                    **f32),
@@ -319,8 +358,8 @@ def init_state(geo: BufferGeometry, config: EchoCanceller3Config,
         min_latency_blocks=torch.zeros((b,), **i32),
         excess_render_detection_counter=torch.zeros((b,), **i32),
         mixer=init_mixer(b, geo.num_channels, device),
-        decimator_aa=biquad.init_state(3, b, None, device),
-        decimator_nr=biquad.init_state(1, b, None, device),
+        decimator_aa=biquad.init_state(aa_sections, b, None, device),
+        decimator_nr=biquad.init_state(nr_sections, b, None, device),
     )
     return reset(geo, config, state)
 
@@ -486,7 +525,10 @@ def _ring_write_group(geo: BufferGeometry, buf: torch.Tensor,
     start + [0, K); the second to the mirror rows start + L + [0, K) when
     start < pad, else to rows [0, K) keeping only the wrapped tail [0, t)
     when t = start + K - L > 0, else to the scratch rows L + pad + [0, K).
-    Rows the second write does not keep are written back as they are."""
+    Rows the second write does not keep are written back as they are. The
+    group is first rounded to the ring's dtype (to nearest even for bf16,
+    as the JAX package's ``astype``)."""
+    group = group.to(buf.dtype)
     K = group.shape[1]
     L, pad = geo.num_blocks, geo.pad
     if K > pad:
@@ -612,7 +654,8 @@ class RenderView(NamedTuple):
 
 def _span(buf: torch.Tensor, start: torch.Tensor, W: int) -> torch.Tensor:
     """Rows [start, start + W) of a mirrored ring per stream, through K2:
-    buf (B, LP, F), start (B,) in [0, L) -> (B, W, F)."""
+    buf (B, LP, F) float32 or bf16, start (B,) in [0, L) -> (B, W, F)
+    float32."""
     return cuda_span.span_gather(buf, start, W)
 
 

@@ -23,12 +23,13 @@ from webrtc_audio_processing_tpu_torch.ops import cuda_subtractor
 
 
 def supported(config: EchoCanceller3Config) -> bool:
-    """Whether the kernel runs this configuration: a coarse filter no longer
-    than the refined one (the kernel's window holds the refined filter's
-    partitions). ``Aec3Geometry.create`` rejects the pair kernel otherwise."""
-    f = config.filter
-    return (max(f.coarse.length_blocks, f.coarse_initial.length_blocks)
-            <= max(f.refined.length_blocks, f.refined_initial.length_blocks))
+    """The JAX twin's answer (subtractor_kernel.py:30-32): every
+    configuration runs with the pair kernel on. Where the coarse filter has
+    more partitions than the refined one (K6's window holds the refined
+    filter's), ``echo_remover.process_capture_pair`` routes the frame to
+    the plain ``subtractor.process_pair`` instead."""
+    del config
+    return True
 
 
 def process_pair_kernel(config: EchoCanceller3Config, geo: rb.BufferGeometry,

@@ -37,7 +37,9 @@ double-buffered, so loads overlap the filtering.
 
 Layout: ``x_t`` and ``y_t`` are (T, M) time-major, ``state`` is (4K, M)
 with rows [x1, x2, y1, y2] per section, ``coeffs`` is (K, 5) float32 rows
-[b0, b1, b2, a1, a2].
+[b0, b1, b2, a1, a2], 1 <= K <= 5 (the JAX kernel takes any K; the
+port's longest cascade is AEC3's factor-8 decimator, five band-pass
+sections).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.
@@ -49,10 +51,12 @@ import torch
 
 from webrtc_audio_processing_tpu_torch.ops import cuda_build
 
-MAX_SECTIONS = 4
+MAX_SECTIONS = 5
 
-# Kernel launches since the last reset; only the CUDA branch counts.
+# Kernel launches since the last reset; only the CUDA branch counts. The
+# same launches by section count: the factor-8 decimators run five.
 launches = 0
+launches_by_sections: dict[int, int] = {}
 
 
 def _fused(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -133,6 +137,8 @@ def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
     )
     cuda_build.check(err, "biquad_cascade_f32")
     launches += 1
+    K = coeffs.shape[0]
+    launches_by_sections[K] = launches_by_sections.get(K, 0) + 1
     return st_out, y_t
 
 

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "take_windows_f32": (_P, _P, _I, _P, _I, _I, _I, _P),
     # ring, start, out, B, LP, F, W, stream
     "span_gather_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # the same for a bfloat16 ring, written as float32
+    "span_gather_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     # lowrate, lr_read, h0, y, smoothing, h, alphas, err, updated, segs,
     # B, N, shift, ds_size, threshold, sub, taps, stream
     "matched_filter_nlms_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,6 +1,6 @@
 """K2: per-stream contiguous row-span read, a hand-written CUDA kernel.
 
-    out[b] = ring[b, start[b] : start[b] + W, :]
+    out[b] = float32(ring[b, start[b] : start[b] + W, :])
 
 Replaces ``webrtc_audio_processing_tpu/ops/pallas_span.py`` ``_span_kernel``
 (launched by ``_span_gather_tpu``, vmap rule in ``make_span_gather``), whose
@@ -8,11 +8,19 @@ oracle is ``lax.dynamic_slice``. Starts follow it: a negative start counts
 from the end, then every start is clamped to [0, LP - W]. AEC3 reads every
 render-ring window through it (``models/aec3/render_buffer._span``).
 
+The ring is float32 or bfloat16 (AEC3's rings with
+``ring_dtype="bfloat16"``); the output is float32 either way, the JAX
+package's read (``render_buffer._span``: the gather in the ring's dtype,
+then ``astype(promote_types(dtype, float32))``). The bf16 form is its own
+kernel, ``span_gather_bf16``, which upcasts as it copies (exact, so no bit
+changes) and counts its launches apart (``launches_bf16``).
+
 What bounds it on an H100: it only moves data, B x W x F x 4 bytes in and
-as many out (about 80 MB each way at B = 2048, W = 19, F = 512), so the
-card's bandwidth bounds it. One block per stream copies its W * F floats
-as 16-byte vectors, consecutive threads on consecutive addresses. Reading
-the rings in place, without this copy, is open (ROADMAP Queue 2 item 3).
+as many out for a float32 ring (about 80 MB each way at B = 2048, W = 19,
+F = 512), half as many in for a bf16 one, so the card's bandwidth bounds
+it. One block per stream copies its W * F values as 16-byte vectors,
+consecutive threads on consecutive addresses. Reading the rings in place,
+without this copy, is open (ROADMAP Queue 2 item 3).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the plain twin.
@@ -24,8 +32,12 @@ import torch
 
 from webrtc_audio_processing_tpu_torch.ops import cuda_build
 
-# Kernel launches since the last reset; only the CUDA branch counts.
+# Kernel launches since the last reset, of the float32 and the bf16 form;
+# only the CUDA branch counts.
 launches = 0
+launches_bf16 = 0
+
+RING_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def clamped_starts(start: torch.Tensor, LP: int, width: int) -> torch.Tensor:
@@ -34,11 +46,13 @@ def clamped_starts(start: torch.Tensor, LP: int, width: int) -> torch.Tensor:
 
 
 def span_gather_plain(ring: torch.Tensor, start: torch.Tensor, width: int):
-    """Plain PyTorch twin: a gather of W consecutive rows per stream."""
+    """Plain PyTorch twin: a gather of W consecutive rows per stream in the
+    ring's dtype, then float32."""
     B, LP, F = ring.shape
     rows = clamped_starts(start, LP, width)[:, None] + torch.arange(
         width, device=ring.device)
-    return torch.gather(ring, 1, rows[:, :, None].expand(B, width, F))
+    return torch.gather(ring, 1,
+                        rows[:, :, None].expand(B, width, F)).float()
 
 
 def _check(ring, start, width):
@@ -48,8 +62,8 @@ def _check(ring, start, width):
             f"and {tuple(start.shape)}")
     if not 0 <= width <= ring.shape[1]:
         raise ValueError(f"width {width} outside [0, {ring.shape[1]}]")
-    if ring.dtype != torch.float32:
-        raise TypeError(f"ring must be float32, got {ring.dtype}")
+    if ring.dtype not in RING_DTYPES:
+        raise TypeError(f"ring must be float32 or bfloat16, got {ring.dtype}")
     if start.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"start must be int32 or int64, got {start.dtype}")
     if start.device != ring.device:
@@ -57,24 +71,30 @@ def _check(ring, start, width):
 
 
 def span_gather_cuda(ring: torch.Tensor, start: torch.Tensor, width: int):
-    """Launch the kernel on PyTorch's current stream."""
-    global launches
+    """Launch the ring dtype's kernel on PyTorch's current stream."""
+    global launches, launches_bf16
     _check(ring, start, width)
     lib = cuda_build.library().lib
     ring = ring.contiguous()
     start = start.to(torch.int32).contiguous()
     B, LP, F = ring.shape
-    out = torch.empty((B, width, F), dtype=ring.dtype, device=ring.device)
-    stream = cuda_build.raw_stream(ring)
-    err = lib.span_gather_f32(ring.data_ptr(), start.data_ptr(),
-                              out.data_ptr(), B, LP, F, width, stream)
-    cuda_build.check(err, "span_gather_f32")
-    launches += 1
+    out = torch.empty((B, width, F), dtype=torch.float32, device=ring.device)
+    name = ("span_gather_f32" if ring.dtype == torch.float32
+            else "span_gather_bf16")
+    err = getattr(lib, name)(ring.data_ptr(), start.data_ptr(),
+                             out.data_ptr(), B, LP, F, width,
+                             cuda_build.raw_stream(ring))
+    cuda_build.check(err, name)
+    if ring.dtype == torch.float32:
+        launches += 1
+    else:
+        launches_bf16 += 1
     return out
 
 
 def span_gather(ring: torch.Tensor, start: torch.Tensor, width: int):
-    """(ring (B, LP, F), start (B,) int) -> (B, width, F)."""
+    """(ring (B, LP, F) float32 or bf16, start (B,) int) -> (B, width, F)
+    float32."""
     if ring.device.type == "cuda":
         return span_gather_cuda(ring, start, width)
     if ring.device.type == "cpu":
