@@ -34,8 +34,8 @@ exits non-zero without a result line:
    call time and, for K2 and K5, the same two times of the one PyTorch call
    that computes the same function (``torch.gather`` on a prebuilt index).
 4. Four AEC3 paths through ``apm.process_stream_pair`` with HPF, AEC3, NS
-   and AGC2, each 300 frames (3 s) of an echo scene with the last 100
-   frames timed:
+   and AGC2 over an echo scene, the last 100 frames timed: the main path
+   300 frames (3 s), the bench's three 160:
    - ``default_48k``, the main path: B = 4096 streams of 48 kHz stereo
      through ``Config()``'s own ``Pipeline()`` (internal rate capped at
      32 kHz, multichannel off): the AudioBuffer resamples 48 -> 32 kHz
@@ -53,9 +53,9 @@ exits non-zero without a result line:
    device kernels per frame (the first is the profiler's warm-up).
 5. After each path, its cross-check: two streams rerun on the CPU by the
    same port (plain twins) from the card's state before each checked frame
-   (every 24th frame from 76 to 195, the untimed run after the delay has
-   locked): relative RMS <= 1e-3 and the same delay on every checked
-   frame. A free-running rerun over the 4 frames from the first
+   (every 24th frame from 76 to 195 on the main path, every 8th from 20
+   to 52 on the others; untimed frames): relative RMS <= 1e-3 and the same delay on every checked
+   frame. A free-running rerun over the 2 frames from the first
    checked one is printed beside it: AEC3 turns float noise into
    decisions (the refined filter's leakage choice when the refined and
    coarse error energies tie to a few ulps), so two devices drift apart
@@ -80,7 +80,7 @@ exits non-zero without a result line:
    prints for those batches.
 9. ``api_48k_stereo``: one ``api.AudioProcessing`` on the card with
    ``Config()``'s pipeline (HPF, AEC3, NS, AGC2 with the RNN-VAD) at 48 kHz
-   stereo, fed stream 0 of the main path's scene for 100 frames
+   stereo, fed stream 0 of the main path's scene for 80 frames
    (``process_reverse_stream``, then ``process_stream``). Its outputs must
    be bit-equal on every frame to ``apm.process_stream_pair`` at B = 1 on
    the frames it processed (the same kernels in the same order at the same
@@ -90,9 +90,9 @@ exits non-zero without a result line:
 10. ``engine_default_48k``: ``runtime.StreamingPlane`` and ``BatchEngine``
    on ``runtime.apm_step_fn``'s step (the one-frame step captured as one
    graph per frame of the period, ``step_graph.FrameGraphs``) at B = 4096
-   of ``default_48k``: the first 120 frames of phase 4's scene through the
+   of ``default_48k``: the first 64 frames of phase 4's scene through the
    plane, producer threads filling the queues before the engine steps,
-   bit-equal on the checked streams to phase 4's eager outputs; then 40
+   bit-equal on the checked streams to phase 4's eager outputs; then 20
    frames in which every 8th stream misses every 5th frame, bit-equal to an
    eager ``process_stream_pair`` fed zeros there; frames processed and
    dropped per stream as pushed. It prints host ms per frame of the pushes,
@@ -108,12 +108,12 @@ exits non-zero without a result line:
    carrying a quiet voiced near end (tests/test_agc_manager_apm.py's
    ``_voiced`` at 0.1 of full scale, ``AGC1_VOICE_AMP``), the applied
    volume starting at 100 and taking frame 1's recommended level on the
-   device between pairs. First 60 frames eagerly
+   device between pairs. First 36 frames eagerly
    (``step_graph.step_pair``, the volume closed the same way), counting every
    kernel's launches, AGC1's limiter (``agc1_limiter``) and the analytics
    VAD's K1 cascades among them; then the whole run through
    ``step_graph.PairGraph`` at the cadence's period 6 (three pair graphs),
-   bit-equal to the eager run on the checked streams over its 60 frames
+   bit-equal to the eager run on the checked streams over its 36 frames
    (outputs, delays, recommended levels), with no host sync in a replay;
    the odd checked streams' level ends above 100, the even ones' ERLE over
    the last third is above 6 dB; and one pair from the card's state before
@@ -128,11 +128,11 @@ exits non-zero without a result line:
    B = 4096 for 600 frames (6 s, tests/test_aecm_apm.py's length) of
    ``aecm_scene``: per stream a speech-like far end, its echo 20, 30 or
    50 ms late with a smear, a voiced near end on the odd streams, every
-   stream reporting a 20 ms delay. First 60 frames eagerly
+   stream reporting a 20 ms delay. First 40 frames eagerly
    (``step_graph.step_pair``, the delay an input), counting K1's and the
    limiter's launches; then the whole run through ``step_graph.PairGraph``
    (period 2) from init_state, bit-equal to the eager run on every stream
-   over its 60 frames (outputs, AGC1's levels, AECM's and AGC1's integer
+   over its 40 frames (outputs, AGC1's levels, AECM's and AGC1's integer
    leaves), with no host sync in a replay; ERLE over the last third above
    8 dB on the checked echo-only streams and on 99% of all of them
    (``AECM_ERLE_SHARE``: AECM lets a few streams' echo through for a while,
@@ -186,12 +186,36 @@ exits non-zero without a result line:
    phase 5's bar; with bf16 rings the ERLE within 1 dB of phase 4's
    float32 ``default_48k`` and the rings' bytes a stream exactly half. It
    prints ms and kernels a frame beside the graphed path each varies.
+18. ``host_tooling``: (a) ``aec_dump_48k_stereo``: phase 9's API and
+   stream for 50 frames with an AEC dump attached (``attach_aec_dump``),
+   then ``utils.aec_dump.replay`` of the file on the card with the same
+   config: every replayed frame bit-equal to the recorded one, the
+   recording the API's own outputs, the launches as
+   ``expected_aec3_launches`` gives; it prints the file's bytes and
+   events, the API's ms a frame recording and replaying (no recorder)
+   over frames 10-49 and the recorder's own encoding ms a frame.
+   (b) ``checkpoint_default_48k``: ``default_48k``'s pair graph at
+   B = 4096 from init_state; at frame 60 ``utils.checkpoint.pack`` of its
+   state, 20 frames more, then ``unpack`` into a fresh state on the card,
+   copied into the graph's, and the same 20 frames again: bit-equal on
+   every stream; the blob's GB and the seconds to pack and to unpack.
+   (c) ``multigpu_dryrun_48k_stereo``: ``graft_entry.dryrun_multigpu`` at
+   B = 2048 in 4 shards on the one card (each shard its own pair graph on
+   its own CUDA stream) against the unsharded pair graph from the same
+   init_state and frames: the first pair's outputs within 1e-6
+   (tests/test_multichip_sharding.py's bar), every float state leaf
+   within relative RMS 1e-3 and the integer leaves equal (whether
+   bit-equal, and whether within JAX's absolute 1e-5, is printed: the
+   card's reductions round by the tensor's size), then 118 frames free
+   running,
+   ERLE over the last third above 6 dB on the checked streams; ms a frame
+   sharded and unsharded and the capture seconds.
 
 Before the last line the kernel table as JSON (each kernel's
 ``launches`` from the main path, K6's from ``pair_kernel_48k``, AGC1's
 limiter's from ``agc1_hybrid_48k``, K2's bf16 form's from
 ``default_48k_bf16``, and ``launches_by_path`` from every path, phases
-9-17 included), then the result JSON. The script
+9-18 included), then the result JSON. The script
 imports no JAX.
 
     python3 chip_smoke.py --kernels-only
@@ -206,8 +230,10 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -223,7 +249,7 @@ ERLE_BAR_DB = 6.0  # tests/test_apm_48k_stereo.py:56
 AEC3_FRAMES = 300
 AEC3_TIMED = 100
 PROFILED_FRAMES = 3  # the first is the profiler's warm-up
-FREE_FRAMES = 4
+FREE_FRAMES = 2
 
 # K6 against its twin: 2e-3 of each float leaf's scale
 # (tests/test_subtractor_pallas.py:119-124), integer leaves exact.
@@ -267,6 +293,7 @@ class Aec3Path:
     pair_kernel: bool
     check: tuple
     cross: range
+    frames: int = 300
 
 
 # The cross-checks run on one CPU core (~0.7 s a frame at 48 kHz): 5
@@ -275,15 +302,18 @@ class Aec3Path:
 # configurations. They are spread over frames 76-195, before the profiled
 # and timed frames.
 # ``default_48k`` is the main path: the APM's own default pipeline.
+# The bench's three paths run 160 frames (the last 100 timed, the checked
+# frames 20-52), which leaves room in the limit for phase 18; the main
+# path keeps 300, whose eager outputs later phases are held to.
 AEC3_PATHS = (
     Aec3Path("default_48k", "default_48k", 4096, False, (0, 4095),
              range(76, 196, 24)),
     Aec3Path("aec3_path", "48k_stereo", B, False, (0, B - 1),
-             range(76, 196, 24)),
+             range(20, 56, 8), 160),
     Aec3Path("pair_kernel_48k", "48k_stereo", B, True, (0, B - 1),
-             range(76, 196, 24)),
+             range(20, 56, 8), 160),
     Aec3Path("pair_kernel_16k_mono", "16k_mono", 4096, True, (0, 4095),
-             range(76, 196, 24)),
+             range(20, 56, 8), 160),
 )
 
 SLICE_WARMUP = 10
@@ -1363,7 +1393,8 @@ def aec3_path_phase(dev, smi, path):
     rate, channels, _ = MODES[path.mode]
     frame, Bp = rate // 100, path.batch
     t0 = time.perf_counter()
-    render, capture = _scene(path.mode, Bp)
+    render, capture = (x[:, :path.frames * frame]
+                       for x in _scene(path.mode, Bp))
     ren_dev = torch.from_numpy(render).to(dev)
     cap_dev = torch.from_numpy(capture).to(dev)
     setup_s = time.perf_counter() - t0
@@ -1376,7 +1407,7 @@ def aec3_path_phase(dev, smi, path):
     cross = path.cross
     timer_start = torch.cuda.Event(enable_timing=True)
     timer_end = torch.cuda.Event(enable_timing=True)
-    first_timed = AEC3_FRAMES - AEC3_TIMED
+    first_timed = path.frames - AEC3_TIMED
     sync_frame = first_timed - 1
     profiled = range(sync_frame - PROFILED_FRAMES, sync_frame)
 
@@ -1413,14 +1444,14 @@ def aec3_path_phase(dev, smi, path):
     torch.cuda.synchronize()
     host_t0 = time.perf_counter()
     timer_start.record()
-    run(range(first_timed, AEC3_FRAMES))
+    run(range(first_timed, path.frames))
     timer_end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - host_t0) * 1000.0 / AEC3_TIMED
     dev_ms = timer_start.elapsed_time(timer_end) / AEC3_TIMED
     run_s = time.perf_counter() - t_run
     launches = _counts()
-    want = expected_aec3_launches(geo, AEC3_FRAMES)
+    want = expected_aec3_launches(geo, path.frames)
     if launches != want:
         raise AssertionError(f"{path.name} launches {launches}, expected "
                              f"{want}")
@@ -1433,7 +1464,7 @@ def aec3_path_phase(dev, smi, path):
     check = list(path.check)
     erle = erle_db(capture[check], render[check], gpu_out, frame)
     phase(path.name, mode=path.mode, streams=Bp,
-          pair_kernel=path.pair_kernel, frames=AEC3_FRAMES,
+          pair_kernel=path.pair_kernel, frames=path.frames,
           timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
           event_ms_per_frame=dev_ms,
           realtime_streams=Bp * min(10.0 / host_ms, 1.0),
@@ -1525,7 +1556,8 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
 
     rate, channels, _ = MODES[path.mode]
     frame, Bp = rate // 100, path.batch
-    render, capture = _scene(path.mode, Bp)
+    render, capture = (x[:, :path.frames * frame]
+                       for x in _scene(path.mode, Bp))
     ren_dev = torch.from_numpy(render).to(dev)
     cap_dev = torch.from_numpy(capture).to(dev)
     geo = aec3_geometry(path.mode, path.pair_kernel)
@@ -1548,7 +1580,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
                   for f in (2 * p, 2 * p + 1))
         return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
 
-    replays = AEC3_FRAMES // 2
+    replays = path.frames // 2
     first_timed = replays - AEC3_TIMED // 2
     timer_start = torch.cuda.Event(enable_timing=True)
     timer_end = torch.cuda.Event(enable_timing=True)
@@ -1576,7 +1608,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
         raise AssertionError(f"non-finite output on {path.name}, graphed")
     got_out = torch.cat(outs, dim=1).cpu().numpy()
     got_delay = torch.stack(delays, dim=1).cpu().numpy()
-    differ = [f for f in range(AEC3_FRAMES) if not np.array_equal(
+    differ = [f for f in range(path.frames) if not np.array_equal(
         got_out[:, f * frame:(f + 1) * frame],
         eager_out[:, f * frame:(f + 1) * frame])]
     same_delay = bool(np.array_equal(got_delay, eager_delay))
@@ -1584,7 +1616,7 @@ def graphed_path_phase(dev, smi, path, eager_out, eager_delay):
     erle = erle_db(capture[check], render[check], got_out, frame)
     launches = {k: v * replays for k, v in captured.items()}
     phase(f"{path.name}_graphed", mode=path.mode, streams=Bp,
-          pair_kernel=path.pair_kernel, frames=AEC3_FRAMES,
+          pair_kernel=path.pair_kernel, frames=path.frames,
           timed_frames=AEC3_TIMED, ms_per_frame=host_ms,
           event_ms_per_frame=dev_ms,
           realtime_streams=Bp * min(10.0 / host_ms, 1.0),
@@ -1635,15 +1667,18 @@ def bench_twin_phase(dev, smi):
 
 # --------------------------------------------- the API and the engine
 
-# 100 frames (1 s): the API and the direct path run eagerly at B = 1, ~0.5
-# s a frame between them; the delay has locked and the ERLE over the last
-# third is far above the bar by then (27.1 dB on the CPU).
-API_FRAMES = 100
+# 80 frames: the API and the direct path run eagerly at B = 1, ~0.35 s a
+# frame between them; the delay has locked and the ERLE over the last
+# third is far above the bar by then (27.2 dB over 100 frames on the card,
+# PR 14).
+API_FRAMES = 80
 API_PROFILED = range(45, 48)  # the first is the profiler's warm-up
 ENGINE_BATCH = 4096
-ENGINE_FRAMES = 120
+# 64 and 20 frames (120 and 40 before phase 18 took their time): the
+# producers' Python pushes cost ~0.26 s a frame of 4096 streams.
+ENGINE_FRAMES = 64
 ENGINE_QUEUE = 16
-ENGINE_MISS_FRAMES = 40
+ENGINE_MISS_FRAMES = 20
 ENGINE_PRODUCERS = 8
 
 
@@ -1933,7 +1968,7 @@ AECM_BATCH = 4096
 # streams (the port on the CPU, 12 streams: tools/torch_aecm_erle.py);
 # over 4-6 s it is 54-76 dB.
 AECM_FRAMES = 600
-AECM_EAGER = 60  # frames run eagerly, then held to the graph
+AECM_EAGER = 40  # frames run eagerly, then held to the graph
 # The stream delay every stream reports: the smallest echo delay. AECM
 # fetches the far end that late and searches later lags only, so an echo
 # earlier than the reported delay is acausal to it: at 30 ms reported the
@@ -2368,7 +2403,7 @@ def aecm_8k_phase(dev, smi):
 
 AGC1_BATCH = 4096
 AGC1_FRAMES = 600  # the 300-frame scene twice
-AGC1_EAGER = 60  # frames run eagerly, then held to the graph
+AGC1_EAGER = 36  # frames run eagerly, then held to the graph
 AGC1_CHECK = (0, 1, 4094, 4095)  # even: echo only; odd: echo and speech
 AGC1_CPU_PAIR = 280  # the pair from frame 560: the analytics VAD's phase 2
 AGC1_START_LEVEL = 100
@@ -3460,6 +3495,349 @@ def slice_path_phase(dev, smi):
         raise AssertionError(f"speech probability differs by {dprob}")
 
 
+# ------------------------------------------------------ host tooling
+
+# Phase 18. (a) The AEC dump: phase 9's API and scene, a dump attached.
+DUMP_FRAMES = 50
+DUMP_TIMED = range(10, DUMP_FRAMES)  # frames timed, with and without it
+# (b) Checkpoint and resume of default_48k's pair graph.
+CKPT_BATCH = 4096
+CKPT_AT = 60  # frames run before the checkpoint
+CKPT_FRAMES = 20  # continued, then replayed from the resumed state
+# (c) The multi-GPU dry run against the unsharded graph.
+SHARDS = 4
+SHARD_BATCH = 2048
+SHARD_FRAMES = 120  # the first pair checked, then free running
+SHARD_TIMED = 50  # the last frames of each run, timed
+SHARD_CHECK = (0, 511, 512, 2047)  # shards 0, 0, 1 and 3
+SHARD_OUT_ATOL = 1e-6  # tests/test_multichip_sharding.py:73-85
+# JAX's state bar there is an absolute 1e-5, held on XLA:CPU where the
+# partitioned program rounds as the whole one. On the card PyTorch's
+# reductions and cuBLAS choose their reduction trees by the tensor's size,
+# so a shard of 512 streams rounds apart from 2048 (one pair: NS's and the
+# RNN-VAD's leaves up to ~1e-4 of their scale). The state is held to the
+# port's card bar instead, each float leaf within relative RMS 1e-3
+# (BASELINE.md), integer leaves equal; JAX's absolute bar is printed.
+SHARD_STATE_ATOL_JAX = 1e-5
+SHARD_STATE_RTOL_RMS = RTOL_RMS
+
+
+def aec_dump_phase(dev, smi):
+    """Phase 18 (a): 50 frames of phase 9's scene through the API with a
+    dump attached, then ``aec_dump.replay`` of the file on the card with
+    the same config, bit-equal; the API's ms a frame recording and
+    replaying (an API without a recorder) over the same frames, and the
+    recorder's own encoding ms a frame. Returns the recording's
+    launches."""
+    from webrtc_audio_processing_tpu_torch import api, config as cfg_mod
+    from webrtc_audio_processing_tpu_torch.utils import aec_dump
+    from webrtc_audio_processing_tpu_torch.utils import debug_proto as dp
+
+    rate = MODES["default_48k"][0]
+    frame = rate // 100
+    # Stream 0 of phase 4's scene, made alone (a stream's signals depend
+    # only on its index).
+    render, capture = (x[0, :DUMP_FRAMES * frame] for x in echo_scene(
+        AEC3_FRAMES, SEED, range(1), rate, MODES["default_48k"][1]))
+    cfg = aec3_config(cfg_mod, "default_48k")
+    ap = api.AudioProcessing(cfg, device=dev)
+    outs, stamps, replay_stamps = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.aecdump")
+        ap.attach_aec_dump(path)
+        _reset_counts()
+        for f in range(DUMP_FRAMES):
+            sl = slice(f * frame, (f + 1) * frame)
+            err_r, _ = ap.process_reverse_stream(render[sl], rate)
+            err, out = ap.process_stream(capture[sl], rate)
+            if err_r or err:
+                raise AssertionError(f"API error {err_r}, {err} at frame {f}")
+            outs.append(out)
+            stamps.append(time.perf_counter())
+        launches = _counts()
+        ap.detach_aec_dump()
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        events = aec_dump.load_dump(path)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = aec_dump.replay(
+            path, config=cfg, device=dev,
+            progress=lambda n: replay_stamps.append(time.perf_counter()))
+        replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for f in range(DUMP_FRAMES):
+        sl = slice(f * frame, (f + 1) * frame)
+        dp.reverse_stream_event(render[sl])
+        dp.stream_event(capture[sl], outs[f], 0, 0, False)
+    encode_ms = (time.perf_counter() - t0) * 1000.0 / DUMP_FRAMES
+    want = expected_aec3_launches(ap._geo, DUMP_FRAMES)
+    recorded_ok = len(pairs) == DUMP_FRAMES and all(
+        np.array_equal(rec, outs[f]) for f, (rec, _) in enumerate(pairs))
+    differ = [f for f, (rec, rep) in enumerate(pairs)
+              if not np.array_equal(rec, rep)]
+    kinds = [e["type"] for e in events]
+    a, b = DUMP_TIMED[0] - 1, DUMP_TIMED[-1]
+
+    def per_frame(ts):
+        return (ts[b] - ts[a]) * 1000.0 / len(DUMP_TIMED)
+
+    phase("aec_dump_48k_stereo", frames=DUMP_FRAMES, streams=1,
+          file_bytes=file_bytes, events=len(events),
+          event_counts={dp_name: kinds.count(k) for dp_name, k in (
+              ("init", dp.INIT), ("config", dp.CONFIG),
+              ("reverse_stream", dp.REVERSE_STREAM),
+              ("stream", dp.STREAM))},
+          timed_frames=len(DUMP_TIMED),
+          api_ms_per_frame_recording=per_frame(stamps),
+          api_ms_per_frame_replaying=per_frame(replay_stamps),
+          api_ms_per_frame_phase9=PHASES.get("api_48k_stereo", {}).get(
+              "host_ms_per_frame"),
+          recorder_encode_ms_per_frame=encode_ms,
+          read_seconds=round(read_s, 3), replay_seconds=round(replay_s, 3),
+          recorded_equals_api_outputs=recorded_ok,
+          replay_bit_equal=recorded_ok and not differ,
+          frames_differing=len(differ), launches=launches,
+          expected_launches=want, card=smi)
+    if not recorded_ok or differ:
+        raise AssertionError(f"the replay differs from the recording on "
+                             f"{len(differ)} frames (recorded outputs "
+                             f"right: {recorded_ok})")
+    if launches != want:
+        raise AssertionError(f"dump launches {launches}, expected {want}")
+    return launches
+
+
+def checkpoint_phase(dev, smi):
+    """Phase 18 (b): ``default_48k``'s pair graph at B = 4096 from
+    init_state; at frame 60 ``checkpoint.pack`` of the state, 20 frames
+    more, then ``checkpoint.unpack`` into a fresh state on the card, copied
+    into the graph's state, and the same 20 frames again: bit-equal on
+    every stream. Returns the launches (captured per pair x replays)."""
+    from webrtc_audio_processing_tpu_torch import apm, step_graph
+    from webrtc_audio_processing_tpu_torch.utils import checkpoint
+
+    frame = MODES["default_48k"][0] // 100
+    n = CKPT_AT + CKPT_FRAMES
+    render, capture = echo_scene(n, SEED, range(CKPT_BATCH), 48000, 2)
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    del render, capture
+    geo = aec3_geometry("default_48k")
+    graph = step_graph.PairGraph(geo, apm.init_state(geo, CKPT_BATCH))
+    _reset_counts()
+    graph.capture()
+    captured = _counts()
+    want = expected_aec3_launches(geo, 2)
+    if captured != want:
+        raise AssertionError(f"checkpoint graph captured {captured}, "
+                             f"expected {want}")
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    after = range(CKPT_AT // 2, n // 2)
+    for p in range(CKPT_AT // 2):
+        graph.replay(*frames(p))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = checkpoint.pack(graph.state)
+    pack_s = time.perf_counter() - t0
+    cont = [o.clone() for p in after for o, _, _ in graph.replay(*frames(p))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = checkpoint.unpack(blob, apm.init_state(geo, CKPT_BATCH))
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+    if fresh.frame_counter != CKPT_AT or int(
+            fresh.aec3_block_ordinal) != apm.block_ordinal(CKPT_AT):
+        raise AssertionError(f"resumed at frame {fresh.frame_counter}")
+    step_graph.copy_into(graph.state, fresh)
+    graph.state.frame_counter = fresh.frame_counter
+    del fresh
+    resumed = [o.clone() for p in after
+               for o, _, _ in graph.replay(*frames(p))]
+    torch.cuda.synchronize()
+    differ = [CKPT_AT + f for f, (a, b) in enumerate(zip(cont, resumed))
+              if not torch.equal(a, b)]
+    finite = bool(torch.stack([torch.isfinite(o).all() for o in cont]).all())
+    phase("checkpoint_default_48k", streams=CKPT_BATCH, packed_at_frame=CKPT_AT,
+          frames_after=CKPT_FRAMES, blob_gb=len(blob) / 1e9,
+          pack_seconds=round(pack_s, 3), unpack_seconds=round(unpack_s, 3),
+          resume_bit_equal=not differ, frames_differing=len(differ),
+          first_frame_differing=differ[0] if differ else None,
+          finite=finite, launches_captured_per_pair=captured,
+          capture_seconds=graph.capture_seconds, card=smi)
+    if differ or not finite:
+        raise AssertionError(f"the resumed run differs from the continued "
+                             f"one on {len(differ)} frames from "
+                             f"{differ[:1]} (finite: {finite})")
+    return {k: v * (n // 2 + len(after)) for k, v in captured.items()}
+
+
+def _state_gap(got, want):
+    """Two states of one structure compared leaf by leaf on the device:
+    {the largest absolute gap of a float leaf and its leaf, the largest
+    relative RMS gap of a float leaf (RMS of the gap over the leaf's RMS,
+    the gap's own RMS where the leaf is zero) and its leaf, whether the
+    integer and boolean leaves are equal, whether all is bit-equal}."""
+    from webrtc_audio_processing_tpu_torch.utils import checkpoint
+
+    gap = {"max_abs": 0.0, "max_abs_leaf": None, "max_rel_rms": 0.0,
+           "max_rel_rms_leaf": None, "integers_equal": True,
+           "bit_equal": True}
+    for (path, g), (_, w) in zip(checkpoint._walk(got),
+                                 checkpoint._walk(want), strict=True):
+        if not torch.is_tensor(w) or not w.numel():
+            continue
+        if w.is_floating_point() or w.is_complex():
+            d = (g - w).abs().double()
+            worst = float(d.max())
+            rms = float(w.abs().double().pow(2).mean().sqrt())
+            rel = float(d.pow(2).mean().sqrt()) / (rms if rms > 0 else 1.0)
+            if worst > gap["max_abs"]:
+                gap["max_abs"], gap["max_abs_leaf"] = worst, path
+            if rel > gap["max_rel_rms"]:
+                gap["max_rel_rms"], gap["max_rel_rms_leaf"] = rel, path
+            gap["bit_equal"] &= worst == 0.0
+        else:
+            same = torch.equal(g.to(torch.int64), w.to(torch.int64))
+            gap["integers_equal"] &= same
+            gap["bit_equal"] &= same
+    return gap
+
+
+def multigpu_dryrun_phase(dev, smi):
+    """Phase 18 (c): ``graft_entry.dryrun_multigpu`` at B = 2048 in 4
+    shards on the one card against the unsharded pair graph from the same
+    init_state and the same frames (the 48 kHz stereo bench scene): the
+    first pair's outputs within tests/test_multichip_sharding.py's 1e-6,
+    its state within ``SHARD_STATE_RTOL_RMS`` a leaf, then 118 frames free
+    running, ERLE over the last third above 6 dB on the checked
+    streams; ms a frame sharded and unsharded, capture seconds. Returns
+    the launches of both (captured x replays)."""
+    from webrtc_audio_processing_tpu_torch import apm, graft_entry
+    from webrtc_audio_processing_tpu_torch import step_graph
+
+    frame = 480
+    render, capture = echo_scene(SHARD_FRAMES, SEED, range(SHARD_BATCH),
+                                 48000, 2)
+    ren_dev = torch.from_numpy(render).to(dev)
+    cap_dev = torch.from_numpy(capture).to(dev)
+    idx = torch.tensor(SHARD_CHECK, device=dev)
+    pairs = SHARD_FRAMES // 2
+    timed = range(pairs - SHARD_TIMED // 2, pairs)
+
+    def frames(p):
+        f0, f1 = (slice(f * frame, (f + 1) * frame)
+                  for f in (2 * p, 2 * p + 1))
+        return ren_dev[:, f0], cap_dev[:, f0], ren_dev[:, f1], cap_dev[:, f1]
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    runner, first = graft_entry.dryrun_multigpu(
+        SHARDS, devices=[dev] * SHARDS, batch=SHARD_BATCH, frames=frames(0))
+    shard_build_s = time.perf_counter() - t0
+    # Each shard's graph runs its pair once eagerly (the warm-up) and once
+    # in its capture.
+    shard_counts = _counts()
+    geo = runner.geo
+    per_pair = expected_aec3_launches(geo, 2)
+    shard_captured = {k: SHARDS * v for k, v in per_pair.items()}
+    if shard_counts != {k: 2 * v for k, v in shard_captured.items()}:
+        raise AssertionError(f"shards launched {shard_counts} in their "
+                             f"warm-ups and captures")
+    whole = step_graph.PairGraph(geo, apm.init_state(geo, SHARD_BATCH))
+    _reset_counts()
+    whole.capture()
+    whole_captured = _counts()
+    if whole_captured != per_pair:
+        raise AssertionError(f"the unsharded graph captured {whole_captured}")
+    want = whole.replay(*frames(0))  # the graph's tensors: read them now
+    out_gap = max(float((first[f][i] - want[f][i]).abs().max())
+                  for f in (0, 1) for i in (0, 1))
+    out_bit_equal = all(torch.equal(first[f][i], want[f][i])
+                        for f in (0, 1) for i in (0, 1))
+    want_idx = [want[f][0][idx] for f in (0, 1)]
+    state_gap = _state_gap(runner.state(), whole.state)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run(step):
+        outs = []
+        for p in range(1, pairs):
+            if p == timed[0]:
+                torch.cuda.synchronize()
+                t_host = time.perf_counter()
+                start.record()
+            outs += [o[idx] for o in step(p)]
+        end.record()
+        torch.cuda.synchronize()
+        return (outs, (time.perf_counter() - t_host) * 1000.0 / SHARD_TIMED,
+                start.elapsed_time(end) / SHARD_TIMED)
+
+    s_outs, s_ms, s_ev = run(lambda p: [o for o, _ in runner.step(*frames(p))])
+    w_outs, w_ms, w_ev = run(lambda p: [o for o, _, _ in
+                                        whole.replay(*frames(p))])
+    first_idx = [first[f][0][idx] for f in (0, 1)]
+    got = torch.cat(first_idx + s_outs, dim=1).cpu().numpy()
+    ref = torch.cat(want_idx + w_outs, dim=1).cpu().numpy()
+    check = list(SHARD_CHECK)
+    erle = erle_db(capture[check], render[check], got, frame)
+    erle_whole = erle_db(capture[check], render[check], ref, frame)
+    phase("multigpu_dryrun_48k_stereo", shards=SHARDS,
+          devices=[str(d) for d in runner.devices],
+          cards=torch.cuda.device_count(), streams=SHARD_BATCH,
+          shard_streams=[b - a for a, b in runner.bounds],
+          frames=SHARD_FRAMES, timed_frames=SHARD_TIMED,
+          first_pair_output_max_abs=out_gap,
+          first_pair_output_bit_equal=out_bit_equal,
+          first_pair_state={**state_gap, "within_jax_atol": state_gap[
+              "max_abs"] <= SHARD_STATE_ATOL_JAX},
+          free_running_bit_equal=bool(np.array_equal(got, ref)),
+          free_running_rel_rms=_rel_rms(got, ref).tolist(),
+          sharded_ms_per_frame=s_ms, sharded_event_ms_per_frame=s_ev,
+          unsharded_ms_per_frame=w_ms, unsharded_event_ms_per_frame=w_ev,
+          shard_capture_seconds=runner.capture_seconds,
+          shard_build_and_capture_seconds=round(shard_build_s, 3),
+          unsharded_capture_seconds=whole.capture_seconds,
+          erle_db=dict(zip(map(str, check), erle.tolist())),
+          unsharded_erle_db=dict(zip(map(str, check), erle_whole.tolist())),
+          launches_captured=shard_captured, card=smi)
+    if out_gap > SHARD_OUT_ATOL:
+        raise AssertionError(f"sharded outputs {out_gap} from unsharded")
+    if (state_gap["max_rel_rms"] > SHARD_STATE_RTOL_RMS
+            or not state_gap["integers_equal"]):
+        raise AssertionError(f"sharded state apart from unsharded: "
+                             f"{state_gap}")
+    if not np.isfinite(got).all() or not (erle > ERLE_BAR_DB).all():
+        raise AssertionError(f"sharded ERLE {erle} dB not above "
+                             f"{ERLE_BAR_DB} dB")
+    return ({k: v * (pairs + 1) for k, v in shard_captured.items()},
+            {k: v * pairs for k, v in whole_captured.items()})
+
+
+def host_tooling_phase(dev, smi):
+    """Phase 18: the dump, the checkpoint and the dry run; the launches of
+    each path by name and each part's wall seconds."""
+    walls, launches = {}, {}
+    t0 = time.perf_counter()
+    launches["aec_dump_48k_stereo"] = aec_dump_phase(dev, smi)
+    t1 = time.perf_counter()
+    launches["checkpoint_default_48k"] = checkpoint_phase(dev, smi)
+    t2 = time.perf_counter()
+    (launches["multigpu_dryrun_48k_stereo"],
+     launches["multigpu_unsharded_48k_stereo"]) = multigpu_dryrun_phase(
+        dev, smi)
+    t3 = time.perf_counter()
+    walls.update(aec_dump=round(t1 - t0, 3), checkpoint=round(t2 - t1, 3),
+                 multigpu_dryrun=round(t3 - t2, 3))
+    return launches, walls
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3529,6 +3907,9 @@ def main(argv=None):
     t12 = time.perf_counter()
     launches.update(variants_phase(dev, smi, eager_out["default_48k"]))
     t13 = time.perf_counter()
+    host_launches, host_walls = host_tooling_phase(dev, smi)
+    launches.update(host_launches)
+    t14 = time.perf_counter()
     phase("wall_seconds", **walls, slice_path=round(t3 - t2, 3),
           bench_twin=round(t4 - t3, 3), api_48k_stereo=round(t5 - t4, 3),
           engine_default_48k=round(t6 - t5, 3),
@@ -3538,7 +3919,8 @@ def main(argv=None):
           aec3_per_block_48k=round(t11 - t10, 3),
           builder_api_48k_stereo=round(t12 - t11, 3),
           aec3_variants=round(t13 - t12, 3),
-          total=round(t13 - t_all, 3))
+          host_tooling=round(t14 - t13, 3), **host_walls,
+          total=round(t14 - t_all, 3))
     # Each kernel's launches on the path it serves: K6 on the 48 kHz stereo
     # pair-kernel path, AGC1's limiter on the hybrid AGC's path, K2's bf16
     # form on the bf16 rings' path, K1-K5 on the main path (the default

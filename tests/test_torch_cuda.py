@@ -1285,3 +1285,99 @@ def test_long_coarse_filter_launches_no_k6(device):
     counts = chip_smoke._counts()
     assert counts["subtractor_pair"] == 0
     assert counts == chip_smoke.expected_aec3_launches(geo, 4)
+
+
+# ------------------------------------------------ host tooling (PR 14)
+
+
+def test_aec_dump_recorded_and_replayed_on_the_card(device, tmp_path):
+    """``Config()``'s pipeline with HPF, AEC3, NS and AGC2 at 48 kHz stereo
+    through the API on the card, 12 frames of an echo scene with a dump
+    attached, then the dump replayed on the card with the same config:
+    every replayed frame bit-equal to the recorded one."""
+    from webrtc_audio_processing_tpu_torch import api
+    from webrtc_audio_processing_tpu_torch.utils import aec_dump
+
+    cfg = chip_smoke.aec3_config(cfg_mod, "default_48k")
+    render, capture = chip_smoke.echo_scene(12, 9, range(1), 48000, 2)
+    ap = api.AudioProcessing(cfg, device=device)
+    path = str(tmp_path / "card.aecdump")
+    ap.attach_aec_dump(path)
+    outs = []
+    for f in range(12):
+        sl = slice(f * 480, (f + 1) * 480)
+        ap.process_reverse_stream(render[0, sl], 48000)
+        outs.append(ap.process_stream(capture[0, sl], 48000)[1])
+    ap.detach_aec_dump()
+    pairs = aec_dump.replay(path, config=cfg, device=device)
+    assert len(pairs) == 12
+    for f, (recorded, replayed) in enumerate(pairs):
+        np.testing.assert_array_equal(recorded, outs[f])
+        np.testing.assert_array_equal(replayed, recorded)
+
+
+def test_checkpoint_packed_on_the_card_steps_on_the_cpu(device):
+    """``default_48k`` at B = 3 after 30 frames on the card, packed there
+    and unpacked into a CPU state: every leaf the card's bit for bit, and
+    one more frame from it on the CPU within the card-vs-CPU bar (relative
+    RMS <= 1e-3 per stream, equal delays) of the card's frame."""
+    from webrtc_audio_processing_tpu_torch.utils import checkpoint
+
+    geo = chip_smoke.aec3_geometry("default_48k")
+    render, capture = chip_smoke.echo_scene(31, 9, range(3), 48000, 2)
+    ren, cap = torch.from_numpy(render), torch.from_numpy(capture)
+    state = apm.init_state(geo, 3, device)
+    for f in range(30):
+        sl = slice(f * 480, (f + 1) * 480)
+        state, *_ = apm.process_stream_pair(geo, state, cap[:, sl].to(device),
+                                            ren[:, sl].to(device))
+    cpu = checkpoint.unpack(checkpoint.pack(state),
+                            apm.init_state(geo, 3, "cpu"))
+    assert cpu.frame_counter == 30
+    g, c = apm.state_to_numpy(state), apm.state_to_numpy(cpu)
+    assert g.keys() == c.keys()
+    for k in g:
+        np.testing.assert_array_equal(c[k], g[k], err_msg=k)
+    sl = slice(30 * 480, 31 * 480)
+    _, y_g, _, st_g = apm.process_stream_pair(geo, state, cap[:, sl].to(
+        device), ren[:, sl].to(device))
+    _, y_c, _, st_c = apm.process_stream_pair(geo, cpu, cap[:, sl],
+                                              ren[:, sl])
+    rel = chip_smoke._rel_rms(y_g.cpu().numpy(), y_c.numpy())
+    assert (rel <= 1e-3).all(), rel
+    assert torch.equal(st_g["delay_ms"].cpu(), st_c["delay_ms"])
+
+
+def test_two_shards_on_one_card_on_two_streams(device):
+    """``graft_entry.ShardedPairStep`` with two shards on cuda:0, each its
+    own pair graph replayed on its own CUDA stream under the launchers'
+    device check, 6 pairs of 48 kHz stereo at B = 6 against the unsharded
+    pair graph: outputs within 1e-6, every kernel launched by each
+    shard's capture as by the unsharded one's."""
+    from webrtc_audio_processing_tpu_torch import graft_entry
+
+    geo = graft_entry.geometry(48000, 2, 2, 48000)
+    render, capture = chip_smoke.echo_scene(12, 9, range(6), 48000, 2)
+    ren = torch.from_numpy(render).to(device)
+    cap = torch.from_numpy(capture).to(device)
+    dev0 = torch.device("cuda", 0)
+    whole = step_graph.PairGraph(geo, apm.init_state(geo, 6, dev0))
+    chip_smoke._reset_counts()
+    whole.capture()
+    one = chip_smoke._counts()
+    sharded = graft_entry.ShardedPairStep(geo, apm.init_state(geo, 6, dev0),
+                                          [dev0, dev0])
+    chip_smoke._reset_counts()
+    sharded.capture()
+    assert chip_smoke._counts() == {k: 2 * v for k, v in one.items()}
+    assert sharded.graphs[0].stream != sharded.graphs[1].stream
+    for p in range(6):
+        args = []
+        for f in (2 * p, 2 * p + 1):
+            sl = slice(f * 480, (f + 1) * 480)
+            args += [ren[:, sl], cap[:, sl]]
+        want = [o.clone() for o, _, _ in whole.replay(*args)]
+        got = [o for o, _ in sharded.step(*args)]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+    torch.cuda.synchronize()

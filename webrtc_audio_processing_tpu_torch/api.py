@@ -32,6 +32,8 @@ Injected components (``builder.Injections``, usually through
 control's metrics reach ``get_statistics`` as AEC3's do.
 ``attach_data_dumper`` rebuilds the pipeline with AEC3's debug taps on and
 records them per frame until ``detach_data_dumper`` writes them.
+``attach_aec_dump`` records the session as the reference's AEC dump
+(``utils/aec_dump.py``, which also replays it).
 
 Usage::
 
@@ -180,6 +182,8 @@ class AudioProcessing:
         self._config = config or cfg_mod.Config()
         self._aec3_config = echo_canceller3_config
         self._injections = injections
+        # The AEC dump's recorder (utils/aec_dump.py), when one is attached.
+        self._aec_dump = None
         # The data dumper's directory and its taps, name -> frames.
         self._data_dump_dir = None
         self._data_dump = None
@@ -220,14 +224,34 @@ class AudioProcessing:
     # ---------------------------------------------------- debug recording
 
     def attach_aec_dump(self, path: str):
-        """AttachAecDump (audio_processing.h:627-640)."""
-        raise NotImplementedError(
-            "the AEC dump recorder is not ported yet (ROADMAP Queue 1 item "
-            "12c)")
+        """AttachAecDump (audio_processing.h:627-640): record the debug
+        event stream to ``path``: the config now, the init event now if
+        the format is known and at each format-driven initialization
+        after, every render and capture frame and runtime setting. The
+        recorder writes the frames the API holds on the host anyway, so it
+        adds no device sync."""
+        from webrtc_audio_processing_tpu_torch.utils import aec_dump
+
+        self.detach_aec_dump()
+        self._aec_dump = aec_dump.AecDumpRecorder(path)
+        self._aec_dump.on_config(self._config)
+        if self._geo is not None:
+            self._dump_init()
+        return kNoError
 
     def detach_aec_dump(self):
-        """DetachAecDump: nothing is ever attached."""
+        """DetachAecDump (audio_processing.h:645-649): close the file."""
+        if self._aec_dump is not None:
+            self._aec_dump.close()
+            self._aec_dump = None
         return kNoError
+
+    def _dump_init(self):
+        g = self._geo
+        self._aec_dump.on_init(
+            g.capture_input_rate, g.num_capture_channels,
+            g.num_capture_channels, g.render_input_rate,
+            g.num_render_channels, g.capture_output_rate)
 
     def attach_data_dumper(self, directory: str):
         """ApmDataDumper analog (logging/apm_data_dumper.h, the
@@ -276,6 +300,7 @@ class AudioProcessing:
                    render_channels, capture_out_rate)
         if self._geo is not None and self._geo_key == geo_key:
             return
+        format_changed = self._geo_key != geo_key
         self._geo_key = geo_key
         # A format-driven (re)initialization recreates the render transfer
         # queues (InitializeLocked -> AllocateRenderQueue,
@@ -299,6 +324,8 @@ class AudioProcessing:
         )
         self._module = apm.module_for(self._geo, self._device)
         self._state = apm.init_state(self._geo, 1, self._device)
+        if self._aec_dump is not None and format_changed:
+            self._dump_init()
         # A level set before the (lazy, format-driven) initialization
         # survives it: GainControlImpl keeps analog_capture_level_ across
         # Initialize (gain_control_impl.cc:265-275, :349).
@@ -324,6 +351,8 @@ class AudioProcessing:
             render = render[:, None]
         if render.shape[1] == 0:
             return kBadNumberChannelsError, render
+        if self._aec_dump is not None:
+            self._aec_dump.on_reverse_stream(render)
         if len(self._render_queue) >= RENDER_QUEUE_SIZE_FRAMES:
             self._render_queue.popleft()
             self._block_metrics.update_render(overrun=True)
@@ -433,6 +462,9 @@ class AudioProcessing:
         self._capture_output_used_last_frame = self._capture_output_used
         if self._config.echo_canceller.enabled:
             self._feed_aec3_metrics(stats)
+        if self._aec_dump is not None:
+            self._aec_dump.on_stream(capture, out_np, self._stream_delay_ms,
+                                     volume, self._key_pressed)
         return kNoError, out_np
 
     def process_stream_int16(self, capture: np.ndarray, sample_rate_hz: int):
@@ -477,6 +509,8 @@ class AudioProcessing:
         """SetRuntimeSetting (audio_processing.h:506-515) with the capture
         handlers of audio_processing_impl.cc:963-1064. A gain setting
         changes the active config and keeps the stream's state."""
+        if self._aec_dump is not None:
+            self._aec_dump.on_runtime_setting(setting.type, setting.value)
         c = self._config
         t, v = setting.type, setting.value
         if t == RuntimeSetting.CAPTURE_PRE_GAIN:

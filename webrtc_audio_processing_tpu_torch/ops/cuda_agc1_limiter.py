@@ -97,6 +97,7 @@ def limit_cuda(gains: torch.Tensor, env: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(gains, env)
+    cuda_build.check_current_device(gains)
     gains = gains.contiguous()
     env = env.contiguous()
     out = torch.empty_like(gains)

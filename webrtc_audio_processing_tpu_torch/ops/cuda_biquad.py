@@ -125,6 +125,7 @@ def cascade_cuda(coeffs: torch.Tensor, state: torch.Tensor,
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(coeffs, state, x_t)
+    cuda_build.check_current_device(x_t)
     coeffs, state, x_t = (t if t.is_contiguous() else t.contiguous()
                           for t in (coeffs, state, x_t))
     T, M = x_t.shape

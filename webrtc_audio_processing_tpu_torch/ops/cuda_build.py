@@ -150,9 +150,28 @@ def ptxas_lines(log: str) -> list[str]:
             if "entry function" in ln or "registers" in ln or "spill" in ln]
 
 
+def check_current_device(t) -> None:
+    """Raise ValueError unless ``t`` lies on the current CUDA device. A
+    kernel launches in the current device's context, on the stream
+    ``raw_stream`` hands it: a tensor of another card (a shard on cuda:1
+    while cuda:0 is current) would be launched against the wrong context.
+    Launch under ``torch.cuda.device(t.device)``."""
+    dev = t.device
+    if dev.type != "cuda":
+        raise ValueError(f"a kernel launch needs a CUDA tensor, got one on "
+                         f"{dev}")
+    current = torch.cuda.current_device()
+    if dev.index != current:
+        raise ValueError(
+            f"the tensor is on {dev} but the current CUDA device is "
+            f"cuda:{current}; launch under torch.cuda.device({dev})")
+
+
 def raw_stream(t) -> int:
     """The handle of PyTorch's current CUDA stream on ``t``'s device, read
-    without building a ``torch.cuda.Stream`` object."""
+    without building a ``torch.cuda.Stream`` object; ``t`` must lie on the
+    current device (``check_current_device``)."""
+    check_current_device(t)
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 

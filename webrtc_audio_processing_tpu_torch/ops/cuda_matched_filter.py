@@ -111,6 +111,7 @@ def nlms_cuda(lowrate, lr_read, h0, y, smoothing, *, shift: int,
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(lowrate, lr_read, h0, y, smoothing)
+    cuda_build.check_current_device(lowrate)
     lib = cuda_build.library().lib
     lowrate, lr_read, h0, y, smoothing = (
         t.contiguous() for t in (lowrate, lr_read, h0, y, smoothing))

@@ -75,6 +75,7 @@ def pre_echo_cuda(seg, h0, alphas, y, acc_rate: int):
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(seg, h0, alphas, y, acc_rate)
+    cuda_build.check_current_device(h0)
     lib = cuda_build.library().lib
     seg, h0, alphas, y = (t.contiguous() for t in (seg, h0, alphas, y))
     B, taps = h0.shape

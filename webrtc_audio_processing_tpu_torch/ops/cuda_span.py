@@ -74,6 +74,7 @@ def span_gather_cuda(ring: torch.Tensor, start: torch.Tensor, width: int):
     """Launch the ring dtype's kernel on PyTorch's current stream."""
     global launches, launches_bf16
     _check(ring, start, width)
+    cuda_build.check_current_device(ring)
     lib = cuda_build.library().lib
     ring = ring.contiguous()
     start = start.to(torch.int32).contiguous()

@@ -282,6 +282,7 @@ def pair_cuda(config: EchoCanceller3Config, st: PairState, sf_chain, offsets,
     """Launch the kernel on PyTorch's current stream; it reads the chain
     rows as [re | im | spectrum | 0]."""
     global launches
+    cuda_build.check_current_device(st.H)
     args, result, _inputs = launch_args(config, st, sf_chain, offsets, ys,
                                         narrow_masks, events,
                                         saturated_capture)

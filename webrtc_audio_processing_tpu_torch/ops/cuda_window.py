@@ -72,6 +72,7 @@ def take_windows_cuda(buf: torch.Tensor, start: torch.Tensor, width: int):
     """Launch the kernel on PyTorch's current stream."""
     global launches
     _check(buf, start, width)
+    cuda_build.check_current_device(buf)
     if not buf.is_contiguous():
         buf = buf.contiguous()
     if not start.is_contiguous():
